@@ -11,10 +11,13 @@ This package imports torch, numpy and scipy, never jax: importing it must not
 pull in ``artalk_tpu`` (whose ``__init__`` imports jax and configures a
 compile cache). Numpy-only helpers are copied rather than imported.
 
-Ported so far: the default path of ``python -m artalk_tpu_torch.cli -a <wav>``
-(exact precision, XLA-path modules, mesh renderer). The z-buffer rasterizer is
-a hand-written CUDA kernel (``csrc/rasterizer.cu``); everything else on the
-path is plain PyTorch. ``ROADMAP.md`` lists what is still to be ported.
+Ported so far: the mesh path of ``python -m artalk_tpu_torch.cli -a <wav>`` in
+every precision mode (exact, ``ARTALK_AR_FUSED=1``, ``ARTALK_AR_PRECISION=fast``
+and ``int8``) and ``serving.StreamPool``. Three hand-written CUDA kernels carry
+it: the z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block stack
+(``csrc/ar_block_stack.cu``) and the wav2vec2 encoder stack
+(``csrc/encoder_block_stack.cu``); everything else on the path is plain
+PyTorch. ``ROADMAP.md`` lists what is still to be ported.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,9 @@
     python -m artalk_tpu_torch.cli -a demo/eng1.wav [-l 750] [-s style_id]
                                    [--assets assets]
 
-It runs on the CUDA device.
+It runs on the CUDA device. The precision switches are environment variables,
+as in the JAX CLI, read by the engine: ``ARTALK_AR_PRECISION=exact|fast|int8``
+and ``ARTALK_AR_FUSED=1``.
 
 ``--load_gaga`` and ``--run_app`` are not ported yet and raise.
 """

@@ -99,18 +99,28 @@ class Wav2VecConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Top-level model config bundling AR + VAE + audio sub-configs.
-
-    The JAX config's precision switches (``bf16_audio``, ``bf16_ar``,
-    ``fused_ar``, ``int8_ar``) are not here: their kernels are not ported yet
-    (ROADMAP.md Queue 1 item 8), and the engine raises for the environment
-    switches that set them."""
+    """Top-level model config bundling AR + VAE + audio sub-configs, with the
+    JAX config's precision switches (the engine sets them from the
+    ``ARTALK_AR_PRECISION`` / ``ARTALK_AR_FUSED`` environment variables)."""
 
     ar: ARConfig = dataclasses.field(default_factory=ARConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     wav2vec: Wav2VecConfig = dataclasses.field(default_factory=Wav2VecConfig)
     fps: float = 25.0
     sample_rate: int = 16000
+    # run the wav2vec2 encoder in bfloat16 (norm statistics and softmax stay
+    # float32). Changes code bits against float32; opt-in.
+    bf16_audio: bool = False
+    # run the AR blocks of the window decode in bfloat16; the head and the
+    # inter-level arithmetic stay float32. Opt-in.
+    bf16_ar: bool = False
+    # run each scale level's 12 blocks as one launch of the block-stack
+    # kernel (ops/ar_block_stack.py) and each window's encoder layers as one
+    # launch of ops/encoder_block_stack.py. Tested to atol, not bit-pinned.
+    fused_ar: bool = False
+    # weight-only int8 packs for both block-stack kernels (symmetric, per
+    # output channel; bf16 compute). Only the fused paths read them.
+    int8_ar: bool = False
 
     @property
     def window_audio_samples(self) -> int:

@@ -1,11 +1,17 @@
 """ARTAvatarInferEngine: the top-level speech -> talking-head pipeline.
 
-Counterpart of ``artalk_tpu/engine.py`` on its default path:
-``inference`` (audio -> smoothed 106-d motion), ``stream`` (window by window
-with a resumable carry), ``set_style_motion``, and ``rendering`` with the
-mesh renderer. Everything runs on one ``device``: "cuda" by default, where
-the rasterizer is a CUDA kernel; "cpu" runs the plain versions and must be
-asked for explicitly.
+Counterpart of ``artalk_tpu/engine.py`` on its mesh path: ``inference``
+(audio -> smoothed 106-d motion), ``stream`` (window by window with a
+resumable carry), ``set_style_motion``, and ``rendering`` with the mesh
+renderer. Everything runs on one ``device``: "cuda" by default, where the
+rasterizer and the block stacks are CUDA kernels; "cpu" runs the plain
+versions and must be asked for explicitly.
+
+The JAX engine's precision switches are read from the environment at
+construction, as there: ``ARTALK_AR_PRECISION`` = ``exact`` (default) /
+``fast`` (bf16 audio encoder and AR blocks) / ``int8`` (fast + int8 fused
+kernels), and ``ARTALK_AR_FUSED=1`` (the block-stack kernels). The fused
+paths' weight packs are built once here.
 
 Importing this module turns TF32 off for matmuls and cuDNN convolutions:
 greedy code bits flip under TF32 (through the wav2vec conv frontend, the
@@ -15,6 +21,7 @@ float32 everywhere.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Dict, Iterator, Optional, Union
@@ -35,21 +42,30 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def _check_ar_precision() -> None:
-    """The ARTALK_AR_PRECISION / ARTALK_AR_FUSED switches of the JAX engine:
-    only the default ("exact", unfused) is ported; the others raise."""
+def _resolve_ar_precision(config: ModelConfig) -> ModelConfig:
+    """Apply the ARTALK_AR_PRECISION ("exact" default / "fast" / "int8") and
+    ARTALK_AR_FUSED environment switches to ``config``, as the JAX engine
+    does. "fast" and "int8" change the code bits against "exact"."""
     ar_prec = os.environ.get("ARTALK_AR_PRECISION", "exact")
     if ar_prec not in ("exact", "fast", "int8"):
         raise ValueError(
             f"ARTALK_AR_PRECISION={ar_prec!r}: expected 'exact', 'fast' or 'int8'")
-    if ar_prec != "exact":
-        raise NotImplementedError(
-            f"ARTALK_AR_PRECISION={ar_prec} is not ported yet (ROADMAP.md "
-            "Queue 1 item 8, precision modes, with Queue 2 items 1-2)")
+    if ar_prec in ("fast", "int8"):
+        config = dataclasses.replace(config, bf16_audio=True, bf16_ar=True)
+    if ar_prec == "int8":
+        config = dataclasses.replace(config, int8_ar=True, fused_ar=True)
     if os.environ.get("ARTALK_AR_FUSED", "0") not in ("0", ""):
-        raise NotImplementedError(
-            "ARTALK_AR_FUSED is not ported yet (ROADMAP.md Queue 2 items 1-2: "
-            "the ar_block_stack and encoder_block_stack kernels)")
+        config = dataclasses.replace(config, fused_ar=True)
+    return config
+
+
+def build_fused_packs(model: BitwiseARModel) -> None:
+    """Build the fused paths' weight packs once (on the model's device),
+    unless the model holds them already."""
+    if model.cfg.fused_ar and model.fused_pack is None:
+        model.fused_pack = model.pack_fused_decode()
+    if model.cfg.fused_ar and model.fused_audio_pack is None:
+        model.fused_audio_pack = model.pack_fused_audio()
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -77,7 +93,6 @@ class ARTAvatarInferEngine:
             raise NotImplementedError(
                 "the GAGAvatar renderer is not ported yet (ROADMAP.md Queue 1 item 10)")
         self.device = resolve_device(device)
-        _check_ar_precision()
         self.fix_pose = fix_pose
         self.clip_length = clip_length
         self.assets_dir = assets_dir
@@ -85,6 +100,7 @@ class ARTAvatarInferEngine:
         if config is None:
             cfg_path = os.path.join(assets_dir, "config.json")
             config = load_config(cfg_path) if os.path.exists(cfg_path) else ModelConfig()
+        config = _resolve_ar_precision(config)
         self.cfg = config
         if params is None:
             ckpt_path = os.path.join(assets_dir, "artalk_params.npz")
@@ -98,6 +114,7 @@ class ARTAvatarInferEngine:
         else:
             model = params_from_flat(params, config)
         self.model = model.to(self.device)
+        build_fused_packs(self.model)
 
         flame_data = load_or_synthesize_flame(assets_dir)
         self.flame = FlameModel(flame_data, n_shape=300, n_exp=100, scale=1.0).to(self.device)

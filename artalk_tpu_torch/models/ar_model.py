@@ -11,9 +11,19 @@ once and append their K/V to a cache laid out as ``[prev prefix | levels]``,
 so the level-causal mask is the cache extent. The caches are local to one
 window and are written in place.
 
+The configuration's precision switches route the decode as the JAX model
+does: ``bf16_audio`` runs the audio encoder in bfloat16, ``bf16_ar`` the block
+walk; ``fused_ar`` runs each level's blocks as one launch of the AR
+block-stack kernel (``ops/ar_block_stack.py``) against a merged-head cache,
+and the encoder layers as one launch of ``ops/encoder_block_stack.py``, with
+float32, bfloat16 or (``int8_ar``) int8 weight packs. Float32 packs keep the
+JAX package's routing rules: the AR kernel at batch <= 2 only, the encoder
+kernel at batch 1 only. A caller that decodes repeatedly builds the packs
+once into ``fused_pack`` / ``fused_audio_pack`` (the engine does); without
+them the decode packs inline.
+
 Not ported yet: top-k/top-p sampling and the teacher-forced
-``forward_logits`` (training), and the fused block-stack kernel
-(ROADMAP.md Queue 2 item 1).
+``forward_logits`` (training).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.ar_block_stack import ar_block_stack, pack_block_weights
 from ..ops.resample1d import resize_area, resize_linear
 from . import nn as tnn
 from .bitwise_vae import BitwiseVAE
@@ -107,6 +118,10 @@ class BitwiseARModel(nn.Module):
         self.register_buffer("_lvl_idx", torch.cat([
             torch.full((pn,), i, dtype=torch.long) for i, pn in enumerate(self.patch_nums)
         ]), persistent=False)
+        # weight packs of the fused paths (pack_fused_decode / pack_fused_audio),
+        # set by a caller that decodes repeatedly; None packs inline
+        self.fused_pack: Optional[dict] = None
+        self.fused_audio_pack: Optional[dict] = None
         self.requires_grad_(False)
 
     # ------------------------------------------------------------------ init
@@ -150,44 +165,112 @@ class BitwiseARModel(nn.Module):
 
     # ---------------------------------------------------------------- attention
 
-    def _block_kv(self, i: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _block_weights(self, dtype: torch.dtype, layers) -> dict:
+        """The stacked weights (``<layer>_w``) and biases (``<layer>_b``) of
+        the named block layers, in ``dtype`` (the bf16_ar decode casts them;
+        float32 returns the parameters)."""
+        wts = {}
+        for name in layers:
+            lin = getattr(self.blocks, name)
+            wts[f"{name}_w"] = lin.w.to(dtype)
+            if lin.b is not None:
+                wts[f"{name}_b"] = lin.b.to(dtype)
+        return wts
+
+    def _block_kv(self, i: int, x: torch.Tensor, wts: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """Block ``i``'s K/V heads for tokens x (keys L2-normalized)."""
-        k = tnn.split_heads(self.blocks.k(x, i), self.num_heads)
-        v = tnn.split_heads(self.blocks.v(x, i), self.num_heads)
+        k = tnn.split_heads(torch.matmul(x, wts["k_w"][i]), self.num_heads)
+        v = tnn.split_heads(torch.matmul(x, wts["v_w"][i]) + wts["v_b"][i], self.num_heads)
         return tnn.l2_normalize(k), v
 
-    def init_cache(self, prev_feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def init_cache(self, prev_feat: torch.Tensor, wts: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-block K/V caches (depth, B, H, cache_len, hd) with the
-        previous-window prefix in positions [0, prev_len)."""
+        previous-window prefix in positions [0, prev_len); the cache dtype
+        follows ``prev_feat``."""
         b = prev_feat.shape[0]
         shape = (self.depth, b, self.num_heads, self.cache_len, self.head_dim)
         k_cache = prev_feat.new_zeros(shape)
         v_cache = prev_feat.new_zeros(shape)
         for i in range(self.depth):
             k_cache[i, :, :, : self.prev_len], v_cache[i, :, :, : self.prev_len] = \
-                self._block_kv(i, prev_feat)
+                self._block_kv(i, prev_feat, wts)
         return k_cache, v_cache
+
+    def init_cache_merged(self, prev_feat: torch.Tensor, wts: dict
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Merged-head caches (depth, B, cache_len, embed) for the block-stack
+        kernel: the contents of ``init_cache`` with the heads folded into the
+        feature axis."""
+        b = prev_feat.shape[0]
+        shape = (self.depth, b, self.cache_len, self.embed_dim)
+        k_cache = prev_feat.new_zeros(shape)
+        v_cache = prev_feat.new_zeros(shape)
+        for i in range(self.depth):
+            k, v = self._block_kv(i, prev_feat, wts)
+            k_cache[i, :, : self.prev_len] = tnn.merge_heads(k)
+            v_cache[i, :, : self.prev_len] = tnn.merge_heads(v)
+        return k_cache, v_cache
+
+    def pack_fused_decode(self) -> dict:
+        """Weight pack of the blocks for the AR block-stack kernel: int8 with
+        ``int8_ar``, else bfloat16 with ``bf16_ar``, else float32."""
+        dtype = torch.float32
+        if self.cfg.bf16_ar:
+            dtype = torch.bfloat16
+        if self.cfg.int8_ar:
+            dtype = torch.int8
+        return pack_block_weights(self.blocks, self.num_heads, dtype=dtype)
+
+    def pack_fused_audio(self) -> dict:
+        """Weight pack of the encoder layers for the encoder block-stack
+        kernel: int8 with ``int8_ar``, else bfloat16 with ``bf16_audio``, else
+        float32. Packed from the float32 parameters."""
+        dtype = torch.float32
+        if self.cfg.bf16_audio:
+            dtype = torch.bfloat16
+        if self.cfg.int8_ar:
+            dtype = torch.int8
+        return self.audio_encoder.pack_fused(dtype)
+
+    def _run_level_fused(self, pack: dict, tokens: torch.Tensor, ada: torch.Tensor,
+                         caches: Tuple[torch.Tensor, torch.Tensor], level: int) -> torch.Tensor:
+        """Counterpart of ``_run_level`` through the block-stack kernel: one
+        launch for all blocks; the level's K/V go into the merged caches in
+        place. Tested to atol against ``_run_level``, not bit-pinned."""
+        start = self.prev_len + self.offsets[level]
+        end = start + self.patch_nums[level]
+        k_cache, v_cache = caches
+        feats, k_new, v_new = ar_block_stack(tokens, ada, pack, k_cache, v_cache,
+                                             start=start, num_heads=self.num_heads)
+        k_cache[:, :, start:end] = k_new
+        v_cache[:, :, start:end] = v_new
+        return feats
 
     def _fused_decode_consts(self, audio_cond: torch.Tensor):
         """Per-block quantities that do not depend on the level's hidden
-        state, computed once per window: the fused (depth, d, 3d) q/k/v
-        weights (k has no bias; a zero slot keeps the add exact), AdaLN for
-        all blocks and positions, the exp'd per-head attention scales, and
-        the head's AdaLN scale/shift."""
+        state, computed once per window: AdaLN for all blocks and positions,
+        and the head's AdaLN scale/shift."""
         b = self.blocks
-        w_qkv = torch.cat([b.q.w, b.k.w, b.v.w], dim=-1)
-        b_qkv = torch.cat([b.q.b, torch.zeros_like(b.q.b), b.v.b], dim=-1)
-        scale_mul = torch.exp(torch.clamp(b.scale_mul, max=math.log(100.0)))
         silu_cond = tnn.silu(audio_cond)
         ada_full = (torch.einsum("bpc,dce->dbpe", silu_cond, b.ada_lin.w)
                     + b.ada_lin.b[:, None, None])
         head_ss = self.head.ada_lin(silu_cond).chunk(2, dim=-1)
-        return w_qkv, b_qkv, scale_mul, ada_full, head_ss
+        return ada_full, head_ss
+
+    def _plain_qkv_consts(self, dtype: torch.dtype):
+        """The plain block walk's fused (depth, d, 3d) q/k/v weights (k has
+        no bias; a zero slot keeps the add exact) and the exp'd per-head
+        attention scales, in ``dtype``."""
+        b = self.blocks
+        w_qkv = torch.cat([b.q.w, b.k.w, b.v.w], dim=-1)
+        b_qkv = torch.cat([b.q.b, torch.zeros_like(b.q.b), b.v.b], dim=-1)
+        scale_mul = torch.exp(torch.clamp(b.scale_mul, max=math.log(100.0)))
+        return w_qkv.to(dtype), b_qkv.to(dtype), scale_mul.to(dtype)
 
     def _run_level(self, tokens: torch.Tensor, ada: torch.Tensor,
                    caches: Tuple[torch.Tensor, torch.Tensor], level: int,
                    w_qkv: torch.Tensor, b_qkv: torch.Tensor,
-                   scale_mul: torch.Tensor) -> torch.Tensor:
+                   scale_mul: torch.Tensor, wts: dict) -> torch.Tensor:
         """Run one level's new tokens (B, pn, d) through all blocks, writing
         their K/V into ``caches`` in place. Returns the features.
 
@@ -195,7 +278,6 @@ class BitwiseARModel(nn.Module):
         start = self.prev_len + self.offsets[level]
         end = start + self.patch_nums[level]
         k_cache, v_cache = caches
-        blk = self.blocks
         x = tokens
         for i in range(self.depth):
             g1, g2, s1, s2, sh1, sh2 = ada[i].chunk(6, dim=-1)
@@ -208,9 +290,11 @@ class BitwiseARModel(nn.Module):
             v_cache[i, :, :, start:end] = v_new
             # level-causal mask is implicit: attend to [prev prefix | levels <= this]
             attn = tnn.sdpa(q, k_cache[i, :, :, :end], v_cache[i, :, :, :end], scale=1.0)
-            x = x + blk.proj(tnn.merge_heads(attn), i) * g1
+            x = x + (torch.matmul(tnn.merge_heads(attn), wts["proj_w"][i])
+                     + wts["proj_b"][i]) * g1
             xm2 = tnn.layer_norm(x, eps=1e-6) * (s2 + 1.0) + sh2
-            x = x + blk.fc2(tnn.gelu_tanh(blk.fc1(xm2, i)), i) * g2
+            h = tnn.gelu_tanh(torch.matmul(xm2, wts["fc1_w"][i]) + wts["fc1_b"][i])
+            x = x + (torch.matmul(h, wts["fc2_w"][i]) + wts["fc2_b"][i]) * g2
         return x
 
     def _head_bits(self, feats: torch.Tensor,
@@ -227,29 +311,69 @@ class BitwiseARModel(nn.Module):
 
     def audio_condition(self, audio_chunk: torch.Tensor) -> torch.Tensor:
         """(B, window_samples) audio -> (B, 181, audio_dim) multi-scale
-        condition: encoder features area-resized to each scale."""
-        feat = self.audio_encoder(audio_chunk).float()
+        condition: encoder features area-resized to each scale.
+
+        With ``bf16_audio`` the encoder runs on bfloat16 copies of its
+        parameters and a bfloat16 chunk (norm statistics and softmax stay
+        float32); with ``fused_ar`` its layers go through the block-stack
+        kernel (float32 packs at batch 1 only). The condition is float32."""
+        cfg = self.cfg
+        fused_pack = None
+        if cfg.fused_ar:
+            fused_pack = self.fused_audio_pack
+            if fused_pack is None:
+                fused_pack = self.pack_fused_audio()
+        enc = self.audio_encoder
+        if cfg.bf16_audio:
+            tensors = {**dict(enc.named_parameters()), **dict(enc.named_buffers())}
+            tensors = {k: t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+                       for k, t in tensors.items()}
+            feat = torch.func.functional_call(enc, tensors, (audio_chunk.to(torch.bfloat16),),
+                                              {"fused_pack": fused_pack})
+        else:
+            feat = enc(audio_chunk, fused_pack)
+        feat = feat.float()
         return torch.cat([resize_area(feat, pn) for pn in self.patch_nums], dim=1)
 
     def decode_window(self, audio_cond: torch.Tensor, style_cond: torch.Tensor,
                       prev_attn_feat: torch.Tensor) -> torch.Tensor:
-        """Greedy code bits of one window, (B, 181, code_dim) int32."""
+        """Greedy code bits of one window, (B, 181, code_dim) int32.
+
+        With ``bf16_ar`` the block walk runs in bfloat16 (weights, AdaLN
+        parameters, attention scales, the prefix and the caches); the head
+        and the inter-level arithmetic stay float32."""
+        cfg = self.cfg
         lvl_pos = self.lvl_pos_embed()
         prev_feat = prev_attn_feat + self.prev_lvl_pos_embed()
         window = self.patch_nums[-1]
-        code_dim = self.cfg.vae.code_dim
+        code_dim = cfg.vae.code_dim
         b = audio_cond.shape[0]
-        w_qkv, b_qkv, scale_mul, ada_full, (h_scale, h_shift) = \
-            self._fused_decode_consts(audio_cond)
-        caches = self.init_cache(prev_feat)
+        ada_full, (h_scale, h_shift) = self._fused_decode_consts(audio_cond)
+        # float32 packs run fused at batch <= 2 only, as in the JAX package
+        f32_pack = not (cfg.bf16_ar or cfg.int8_ar)
+        use_fused = cfg.fused_ar and (b <= 2 or not f32_pack)
+        cdt = torch.bfloat16 if cfg.bf16_ar else torch.float32
+        wts = self._block_weights(cdt, ("k", "v") if use_fused
+                                  else ("k", "v", "proj", "fc1", "fc2"))
+        ada_full, prev_feat = ada_full.to(cdt), prev_feat.to(cdt)
+        if use_fused:
+            pack = self.fused_pack if self.fused_pack is not None else self.pack_fused_decode()
+            caches = self.init_cache_merged(prev_feat, wts)
+        else:
+            w_qkv, b_qkv, scale_mul = self._plain_qkv_consts(cdt)
+            caches = self.init_cache(prev_feat, wts)
 
         f_hat = audio_cond.new_zeros((b, window, code_dim))
         tokens = (style_cond + lvl_pos[:, :1]).expand(b, 1, self.embed_dim)
         all_bits = []
         for level, pn in enumerate(self.patch_nums):
             off = self.offsets[level]
-            feats = self._run_level(tokens, ada_full[:, :, off : off + pn], caches, level,
-                                    w_qkv, b_qkv, scale_mul)
+            ada = ada_full[:, :, off : off + pn]
+            if use_fused:
+                feats = self._run_level_fused(pack, tokens.to(cdt), ada, caches, level)
+            else:
+                feats = self._run_level(tokens.to(cdt), ada, caches, level, w_qkv, b_qkv,
+                                        scale_mul, wts)
             bits = self._head_bits(feats.float(),
                                    (h_scale[:, off : off + pn], h_shift[:, off : off + pn]))
             all_bits.append(bits)

@@ -44,7 +44,7 @@ class MeshRenderer:
 
     def __init__(self, image_size: int = 512, faces: np.ndarray | None = None,
                  scale: float = 1.0, template_verts: np.ndarray | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         assert faces is not None, "faces required"
         self.image_size = int(image_size)
         self.scale = scale

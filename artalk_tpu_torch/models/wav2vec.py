@@ -7,9 +7,14 @@ conv (SamePad drops the trailing step for an even kernel) -> 24 pre-LN
 encoder layers -> final LayerNorm. For the 4 s window (64 000 samples) the
 conv stack yields 199 frames.
 
+With a ``fused_pack`` (``pack_fused``) the 24 layers run as one launch of the
+encoder block-stack kernel (``ops/encoder_block_stack.py``) instead of the
+layer-by-layer plain torch; bf16 and int8 packs also take batches of windows,
+float32 packs batch 1 only, as the JAX package routes them.
+
 Not ported yet (ROADMAP.md Queue 1 item 12): the group-norm/HuBERT post-LN
-layout. The fused encoder kernel and the flash-attention kernel wait in
-ROADMAP.md Queue 2; their switches raise ``NotImplementedError``.
+layout. The flash-attention kernel waits in ROADMAP.md Queue 2; its switch
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Wav2VecConfig
+from ..ops.encoder_block_stack import (encoder_block_stack, pack_batched_ok,
+                                       pack_encoder_weights)
 from . import nn as tnn
 
 
@@ -28,6 +35,18 @@ def normalize_audio(audio: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     n = audio.shape[-1]
     var = (audio - mean).square().sum(dim=-1, keepdim=True) / (n - 1)
     return (audio - mean) / (torch.sqrt(var) + eps)
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+           **kwargs) -> torch.Tensor:
+    """``F.conv1d``; bfloat16 inputs are convolved in float32 and rounded
+    once, then the bias is added in bfloat16, as XLA computes a bf16
+    convolution. (PyTorch's CPU bf16 grouped convolution loses most of its
+    precision, and the plain versions must run on the CPU too.)"""
+    if x.dtype != torch.bfloat16:
+        return F.conv1d(x, w, b, **kwargs)
+    y = F.conv1d(x.float(), w.float(), **kwargs).to(torch.bfloat16)
+    return y if b is None else y + b[:, None]
 
 
 class _Conv(nn.Module):
@@ -117,7 +136,7 @@ class Wav2VecEncoder(nn.Module):
         """(B, T_samples) -> (B, T_frames, conv_dim): conv -> channel LN -> erf-GELU."""
         x = audio[:, None, :]
         for layer, stride in zip(self.feature_extractor, self.cfg.conv_stride):
-            x = F.conv1d(x, layer.conv.w, layer.conv.b, stride=stride)
+            x = conv1d(x, layer.conv.w, layer.conv.b, stride=stride)
             x = layer.norm(x.transpose(1, 2)).transpose(1, 2)
             x = tnn.gelu_erf(x)
         return x.transpose(1, 2)
@@ -125,20 +144,29 @@ class Wav2VecEncoder(nn.Module):
     def _pos_conv_embed(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         p = self.encoder.pos_conv
-        h = F.conv1d(x.transpose(1, 2), p.w, p.b,
+        h = conv1d(x.transpose(1, 2), p.w, p.b,
                      padding=cfg.num_conv_pos_embeddings // 2,
                      groups=cfg.num_conv_pos_embedding_groups)
         if cfg.num_conv_pos_embeddings % 2 == 0:  # SamePad: drop trailing step
             h = h[..., :-1]
         return tnn.gelu_erf(h.transpose(1, 2))
 
-    def encode(self, features: torch.Tensor) -> torch.Tensor:
+    def pack_fused(self, dtype: torch.dtype = torch.float32) -> dict:
+        """Weight pack of the encoder layers for the block-stack kernel; pass it
+        to ``encode``/``forward`` as ``fused_pack``."""
+        return pack_encoder_weights(self.encoder.layers, dtype=dtype)
+
+    def encode(self, features: torch.Tensor, fused_pack: dict | None = None) -> torch.Tensor:
         """Feature projection + pre-LN transformer encoder + final LN."""
         cfg = self.cfg
         num_heads = cfg.num_attention_heads
         fp = self.feature_projection
         x = fp.proj(fp.norm(features))
         x = x + self._pos_conv_embed(x)
+        if fused_pack is not None and (x.shape[0] == 1 or pack_batched_ok(fused_pack)):
+            x = encoder_block_stack(x.float(), fused_pack, num_heads=num_heads,
+                                    eps=cfg.layer_norm_eps)
+            return self.encoder.final_norm(x)
         lay = self.encoder.layers
         # one (d, 3d) q/k/v matmul per layer, as the JAX XLA path fuses them
         w_qkv = torch.cat([lay.q.w, lay.k.w, lay.v.w], dim=-1)
@@ -153,9 +181,9 @@ class Wav2VecEncoder(nn.Module):
             x = x + lay.fc2(tnn.gelu_erf(lay.fc1(y, i)), i)
         return self.encoder.final_norm(x)
 
-    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+    def forward(self, audio: torch.Tensor, fused_pack: dict | None = None) -> torch.Tensor:
         """Full forward: z-norm -> convs -> encoder. (B, T) -> (B, frames, d)."""
-        return self.encode(self.extract_features(normalize_audio(audio)))
+        return self.encode(self.extract_features(normalize_audio(audio)), fused_pack)
 
     def num_output_frames(self, num_samples: int) -> int:
         return self.cfg.num_output_frames(num_samples)

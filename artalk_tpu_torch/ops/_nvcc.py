@@ -1,0 +1,48 @@
+"""Build a CUDA source of ``csrc/`` into a shared library and load it.
+
+The library is compiled with nvcc for sm_90a into ``_build/`` beside the
+package at first use and named by a hash of its source and the headers it
+includes, so an edited source is rebuilt and an unchanged one is reused. The
+kernels have a plain C interface and are bound with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Sequence, Tuple
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+
+
+def build_library(source: Path, headers: Sequence[Path] = ()) -> Tuple[ctypes.CDLL, float, str]:
+    """Compile ``source`` (unless a library of the same sources exists) and
+    load it. Returns (library, seconds spent, ptxas report: registers, shared
+    memory and spills per kernel, empty when the library was reused)."""
+    t0 = time.perf_counter()
+    digest = hashlib.sha256()
+    for path in (source, *headers):
+        digest.update(path.read_bytes())
+    lib_path = BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+    report = ""
+    if not lib_path.exists():
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC),
+               "-o", str(tmp), str(source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib_path)
+        report = "\n".join(line for line in proc.stderr.splitlines()
+                           if "registers" in line or "spill" in line)
+    return ctypes.CDLL(str(lib_path)), time.perf_counter() - t0, report

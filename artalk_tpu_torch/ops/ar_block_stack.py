@@ -1,0 +1,339 @@
+"""The AR block stack: one VAR scale level through all AdaLN blocks.
+
+Counterpart of ``artalk_tpu/ops/ar_block_stack.py``. ``ar_block_stack`` runs
+one level's new tokens through the whole block stack against the level's
+KV-cache prefix, in one launch of the CUDA kernel in
+``csrc/ar_block_stack.cu`` for CUDA tensors, and with
+``ar_block_stack_plain`` for CPU tensors; for a CUDA tensor it launches the
+kernel or raises.
+
+Weights come packed by ``pack_block_weights`` as whole per-block matrices in
+the ``(in, out)`` layout, in float32, bfloat16 or int8. The int8 pack
+(``quantize_tiles``) is the JAX package's weight-only quantization, value for
+value: symmetric, per output channel, with ``scale = max(absmax, 1e-12) / 127``
+and round-half-to-even; for fc2 a scale covers one ``d``-row chunk of the
+hidden contraction, as the JAX pack's transposed fc2 tiles have it. The JAX
+pack's ``(d, TW)`` tile stream, its padding of the level to 16 rows and its
+batch tiling served Mosaic's VMEM and are not carried over.
+
+Numerics, as in the Pallas kernel: for bf16 and int8 packs both operands of
+every product (the attention products included) are rounded to bfloat16 and
+accumulated in float32; int8 scales multiply each scale chunk's float32
+result. LayerNorm statistics, softmax and residuals are float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..models import nn as tnn
+from ._nvcc import CSRC, build_library
+
+PackDict = Dict[str, torch.Tensor]
+
+# Launches of the CUDA kernel in this process; ar_block_stack() adds one per launch.
+LAUNCHES = 0
+
+SOURCE = CSRC / "ar_block_stack.cu"
+HEADERS = (CSRC / "block_stack_common.cuh",)
+BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
+_LIB = None
+
+WEIGHT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+NOT_CO_RESIDENT = -1
+
+
+class _ArParams(ctypes.Structure):
+    """Mirror of ``ArParams`` in csrc/ar_block_stack.cu."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "ada", "wqkv", "wproj", "wfc1", "wfc2", "bqkv", "bproj", "bfc1", "bfc2",
+        "qscale", "sqkv", "sproj", "sfc1", "sfc2", "kc", "vc", "feats", "k_new", "v_new",
+        "qkv", "attn", "h", "partial")] + [(n, ctypes.c_int) for n in (
+        "B", "pn", "d", "H", "hidden", "depth", "cache_len", "start", "wtype", "ctype",
+        "sp_qkv", "sp_proj", "sp_fc1", "sp_fc2")]
+
+
+# ---------------------------------------------------------------------------
+# Packs
+# ---------------------------------------------------------------------------
+
+
+def quantize_tiles(w: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of ``(..., K, N)`` weights per output column
+    and per ``chunk`` rows of the contraction. Returns (int8 weights of the
+    same shape, ``(..., K // chunk, N)`` float32 scales)."""
+    *lead, k, n = w.shape
+    wc = w.float().reshape(*lead, k // chunk, chunk, n)
+    scales = torch.clamp(wc.abs().amax(dim=-2), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(wc / scales[..., None, :]), -127, 127).to(torch.int8)
+    return q.reshape(w.shape), scales
+
+
+def pack_weights(mats: Dict[str, torch.Tensor], dtype: torch.dtype, d: int) -> PackDict:
+    """``{name: (depth, K, N) float32}`` -> the pack's weights: cast to
+    ``dtype``, or for int8 quantized with ``s<name>`` scales (chunk ``d``)."""
+    pack = {}
+    for name, w in mats.items():
+        if dtype == torch.int8:
+            pack[name], pack["s" + name[1:]] = quantize_tiles(w, d)
+        else:
+            pack[name] = w.to(dtype).contiguous()
+    return pack
+
+
+@torch.no_grad()
+def pack_block_weights(blocks, num_heads: int, dtype: torch.dtype = torch.float32) -> PackDict:
+    """Pack the stacked AdaLN blocks (``BitwiseARModel.blocks``) for the kernel.
+
+    Returns ``wqkv`` (depth, d, 3d), ``wproj`` (depth, d, d), ``wfc1`` (depth, d,
+    hidden) and ``wfc2`` (depth, hidden, d) in ``dtype``; float32 biases
+    ``bqkv`` (with the zero k bias), ``bproj``, ``bfc1``, ``bfc2``; ``qscale``
+    (depth, H), the per-head ``exp(min(scale_mul, log 100))``; and for int8 the
+    scales ``sqkv``, ``sproj``, ``sfc1`` (depth, 1, N) and ``sfc2`` (depth,
+    hidden // d, d)."""
+    if dtype not in WEIGHT_TYPES:
+        raise ValueError(f"pack dtype {dtype} is not float32, bfloat16 or int8")
+    d = blocks.q.w.shape[-1]
+    depth = blocks.q.w.shape[0]
+    pack = pack_weights({
+        "wqkv": torch.cat([blocks.q.w, blocks.k.w, blocks.v.w], dim=-1),
+        "wproj": blocks.proj.w, "wfc1": blocks.fc1.w, "wfc2": blocks.fc2.w}, dtype, d)
+    pack["bqkv"] = torch.cat([blocks.q.b, torch.zeros_like(blocks.q.b), blocks.v.b], dim=-1)
+    pack["bproj"] = blocks.proj.b.float().contiguous()
+    pack["bfc1"] = blocks.fc1.b.float().contiguous()
+    pack["bfc2"] = blocks.fc2.b.float().contiguous()
+    pack["qscale"] = torch.exp(torch.clamp(blocks.scale_mul, max=math.log(100.0))
+                               ).reshape(depth, num_heads).contiguous()
+    return pack
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def rounder(pack: PackDict):
+    """The operand rounding of a pack's products: bf16 for bf16/int8 packs."""
+    if pack_dtype(pack) == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(torch.bfloat16).float()
+
+
+def pack_dtype(pack: PackDict) -> torch.dtype:
+    return pack["wqkv"].dtype
+
+
+def weight_matmul(a: torch.Tensor, w: torch.Tensor, scales: Optional[torch.Tensor],
+                  rnd) -> torch.Tensor:
+    """``rnd(a) @ w`` in float32; with int8 scales (K // chunk, N), each
+    chunk's product is scaled and the chunks summed in order."""
+    a = rnd(a)
+    w = w.float()
+    if scales is None:
+        return torch.matmul(a, w)
+    chunk = w.shape[0] // scales.shape[0]
+    y = None
+    for c in range(scales.shape[0]):
+        part = torch.matmul(a[..., c * chunk:(c + 1) * chunk], w[c * chunk:(c + 1) * chunk])
+        y = part * scales[c] if y is None else y + part * scales[c]
+    return y
+
+
+def softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rnd,
+                   logit_scale: Optional[float] = None) -> torch.Tensor:
+    """``softmax(q k^T [* scale]) v`` over (B, H, L, hd) heads, with the kernel's
+    order: rounded operands, unrounded sum of the exponentials."""
+    logits = torch.matmul(rnd(q), rnd(k).transpose(-1, -2))
+    if logit_scale is not None:
+        logits = logits * logit_scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return torch.matmul(rnd(p), rnd(v)) / p.sum(dim=-1, keepdim=True)
+
+
+def ar_block_stack_plain(x: torch.Tensor, ada: torch.Tensor, pack: PackDict,
+                         k_cache: torch.Tensor, v_cache: torch.Tensor, *, start: int,
+                         num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-torch version of ``ar_block_stack`` (same arguments and results)."""
+    rnd = rounder(pack)
+    depth = pack["wqkv"].shape[0]
+    x = x.float()
+    ada = ada.float()
+    k_out, v_out = [], []
+    for i in range(depth):
+        def sc(name):
+            return pack[name][i] if name in pack else None
+
+        g1, g2, s1, s2, sh1, sh2 = ada[i].chunk(6, dim=-1)
+        xm = tnn.layer_norm(x, eps=1e-6) * (s1 + 1.0) + sh1
+        qkv = weight_matmul(xm, pack["wqkv"][i], sc("sqkv"), rnd) + pack["bqkv"][i]
+        q, k, v = (tnn.split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+        q = tnn.l2_normalize(q) * pack["qscale"][i][:, None, None]
+        k = tnn.l2_normalize(k)
+        keys = torch.cat([tnn.split_heads(k_cache[i, :, :start].float(), num_heads), k], dim=2)
+        vals = torch.cat([tnn.split_heads(v_cache[i, :, :start].float(), num_heads), v], dim=2)
+        attn = tnn.merge_heads(softmax_attend(q, keys, vals, rnd))
+        x = x + (weight_matmul(attn, pack["wproj"][i], sc("sproj"), rnd) + pack["bproj"][i]) * g1
+        xm = tnn.layer_norm(x, eps=1e-6) * (s2 + 1.0) + sh2
+        h = tnn.gelu_tanh(weight_matmul(xm, pack["wfc1"][i], sc("sfc1"), rnd) + pack["bfc1"][i])
+        x = x + (weight_matmul(h, pack["wfc2"][i], sc("sfc2"), rnd) + pack["bfc2"][i]) * g2
+        k_out.append(tnn.merge_heads(k))
+        v_out.append(tnn.merge_heads(v))
+    return (x, torch.stack(k_out).to(k_cache.dtype), torch.stack(v_out).to(v_cache.dtype))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def build() -> float:
+    """Build (or reuse) and load the kernel's shared library. Returns the
+    seconds spent, 0.0 when it was already loaded."""
+    global _LIB, BUILD_REPORT
+    if _LIB is not None:
+        return 0.0
+    lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
+    lib.artalk_ar_block_stack.argtypes = [ctypes.POINTER(_ArParams), ctypes.c_void_p]
+    lib.artalk_ar_block_stack.restype = ctypes.c_int
+    _LIB = lib
+    return seconds
+
+
+def check_shapes(d: int, hidden: int, num_heads: int) -> None:
+    """What the kernels' tiling takes: widths in whole 64-column tiles, at
+    most 1024 (a LayerNorm row is held in registers), and head dims of 32 to
+    128 in steps of 32."""
+    hd = d // num_heads
+    if d % 64 or d > 1024 or hidden % d or hd * num_heads != d or hd % 32 or hd > 128:
+        raise ValueError(f"block stack kernel: d={d}, hidden={hidden}, heads={num_heads} "
+                         "need d % 64 == 0, d <= 1024, hidden % d == 0 and a head dim of "
+                         "32, 64, 96 or 128")
+
+
+def check_pack(pack: PackDict, device: torch.device) -> None:
+    """Every pack tensor on ``device`` and contiguous; scales iff int8."""
+    for name, t in pack.items():
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"pack[{name!r}] must be contiguous on {device}")
+    wtype = pack_dtype(pack)
+    if wtype not in WEIGHT_TYPES:
+        raise ValueError(f"pack weights of dtype {wtype}: want float32, bfloat16 or int8")
+    has_scales = "sqkv" in pack
+    if has_scales != (wtype == torch.int8):
+        raise ValueError("int8 packs need their scales, and only they have them")
+
+
+TILE_M, TILE_N, TILE_K = 32, 64, 32   # the kernels' output tile and contraction step
+
+
+def contraction_splits(rows: int, products, d: int, sms: int) -> list:
+    """How many ways each (N, K) product's contraction is split: the most that
+    still give at most one work item per CTA of the grid (two per SM) when
+    ``rows`` (the tokens of one batch row) fill few tiles. The count depends
+    on the product's shape, ``rows`` and the card, never on the batch, so a
+    row's sums are the same at any batch size. A split never straddles a
+    ``d``-row int8 scale chunk, and there are at most 16."""
+    splits = []
+    for n, k in products:
+        base = -(-rows // TILE_M) * (n // TILE_N)
+        steps, chunk_steps = k // TILE_K, d // TILE_K
+        valid = [s for s in range(1, min(16, steps) + 1) if steps % s == 0
+                 and (chunk_steps % (steps // s) == 0 or (steps // s) % chunk_steps == 0)
+                 and base * s <= 2 * sms]
+        splits.append(valid[-1] if valid else 1)
+    return splits
+
+
+def split_products(rows: int, batch: int, d: int, hidden: int, device: torch.device):
+    """Contraction splits of a block's four products (q/k/v, projection, fc1,
+    fc2) and the scratch for their partial sums."""
+    products = ((3 * d, d), (d, d), (hidden, d), (d, hidden))
+    splits = contraction_splits(rows, products, d,
+                                torch.cuda.get_device_properties(device).multi_processor_count)
+    size = max([s * batch * rows * n for (n, _), s in zip(products, splits) if s > 1] or [1])
+    return splits, torch.empty(size, dtype=torch.float32, device=device)
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise for an entry point's nonzero return."""
+    if err == NOT_CO_RESIDENT:
+        raise RuntimeError(f"{name}: the cooperative grid cannot be co-resident on this card "
+                           "(shared memory or registers too large)")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def ar_block_stack(x: torch.Tensor, ada: torch.Tensor, pack: PackDict,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor, *, start: int,
+                   num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run one level's tokens through the whole block stack.
+
+    x: (B, pn, d) level tokens; ada: (depth, B, pn, 6d) AdaLN parameters at
+    these positions (both float32 or bfloat16); pack: ``pack_block_weights``;
+    k_cache/v_cache: (depth, B, cache_len, d) merged-head caches (float32 or
+    bfloat16) whose rows [0, start) hold the prefix (keys L2-normalised).
+    Returns (feats (B, pn, d) float32, k_new and v_new (depth, B, pn, d) in the
+    cache dtype, k_new L2-normalised); the caller writes them at ``start``.
+    A CPU tensor goes through ``ar_block_stack_plain``."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return ar_block_stack_plain(x, ada, pack, k_cache, v_cache, start=start,
+                                    num_heads=num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"ar_block_stack: unsupported device {x.device}")
+    b, pn, d = x.shape
+    depth, hidden = pack["wfc1"].shape[0], pack["wfc1"].shape[2]
+    cache_len = k_cache.shape[2]
+    check_shapes(d, hidden, num_heads)
+    if ada.shape != (depth, b, pn, 6 * d):
+        raise ValueError(f"ada {tuple(ada.shape)}: want {(depth, b, pn, 6 * d)}")
+    if (k_cache.shape != (depth, b, cache_len, d) or v_cache.shape != k_cache.shape
+            or k_cache.dtype != v_cache.dtype or k_cache.dtype not in CACHE_TYPES):
+        raise ValueError(f"caches {tuple(k_cache.shape)} {k_cache.dtype} / "
+                         f"{tuple(v_cache.shape)} {v_cache.dtype}: want two float32 or "
+                         f"bfloat16 ({depth}, {b}, cache_len, {d})")
+    if not 0 <= start <= cache_len - pn:
+        raise ValueError(f"start {start} + {pn} tokens exceed the cache of {cache_len}")
+    if ada.device != x.device:
+        raise ValueError("ar_block_stack: ada must be on the tokens' device")
+    for t in (k_cache, v_cache):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("ar_block_stack: caches must be contiguous on the tokens' device")
+    check_pack(pack, x.device)
+    build()
+    x = x.float().contiguous()
+    ada = ada.float().contiguous()
+    m = b * pn
+    dev = x.device
+    feats = torch.empty((b, pn, d), dtype=torch.float32, device=dev)
+    k_new = torch.empty((depth, b, pn, d), dtype=k_cache.dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    qkv = torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
+    attn = torch.empty((m, d), dtype=torch.float32, device=dev)
+    h = torch.empty((m, hidden), dtype=torch.float32, device=dev)
+    splits, partial = split_products(pn, b, d, hidden, dev)
+    params = _ArParams(
+        x=ptr(x), ada=ptr(ada), wqkv=ptr(pack["wqkv"]), wproj=ptr(pack["wproj"]),
+        wfc1=ptr(pack["wfc1"]), wfc2=ptr(pack["wfc2"]), bqkv=ptr(pack["bqkv"]),
+        bproj=ptr(pack["bproj"]), bfc1=ptr(pack["bfc1"]), bfc2=ptr(pack["bfc2"]),
+        qscale=ptr(pack["qscale"]), sqkv=ptr(pack.get("sqkv")), sproj=ptr(pack.get("sproj")),
+        sfc1=ptr(pack.get("sfc1")), sfc2=ptr(pack.get("sfc2")), kc=ptr(k_cache),
+        vc=ptr(v_cache), feats=ptr(feats), k_new=ptr(k_new), v_new=ptr(v_new),
+        qkv=ptr(qkv), attn=ptr(attn), h=ptr(h), partial=ptr(partial), B=b, pn=pn, d=d,
+        H=num_heads, hidden=hidden, depth=depth, cache_len=cache_len, start=start,
+        wtype=WEIGHT_TYPES[pack_dtype(pack)], ctype=CACHE_TYPES[k_cache.dtype], sp_qkv=splits[0],
+        sp_proj=splits[1], sp_fc1=splits[2], sp_fc2=splits[3])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check_launch("ar_block_stack", _LIB.artalk_ar_block_stack(ctypes.byref(params), stream))
+    LAUNCHES += 1
+    return feats, k_new, v_new

@@ -1,0 +1,157 @@
+"""The wav2vec2 encoder stack: all pre-LN layers of a window in one call.
+
+Counterpart of ``artalk_tpu/ops/encoder_block_stack.py``.
+``encoder_block_stack`` runs the post-(projection + positional conv) hidden
+state through every stable-layer-norm encoder layer (pre-LN bidirectional
+attention, pre-LN erf-GELU FFN, residuals) in one launch of the CUDA kernel
+in ``csrc/encoder_block_stack.cu`` for CUDA tensors, and with
+``encoder_block_stack_plain`` for CPU tensors; for a CUDA tensor it launches
+the kernel or raises. The final LayerNorm stays with the caller.
+
+Packs and numerics are those of ``ops/ar_block_stack.py``: whole matrices in
+float32, bfloat16 or int8 (the JAX package's quantization, value for value),
+bf16-rounded operands for bf16/int8 packs, float32 accumulation. Several
+windows may go through one call: each window's result equals its own
+single-window result bit for bit, in the kernel and in the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models import nn as tnn
+from ._nvcc import CSRC, build_library
+from .ar_block_stack import (WEIGHT_TYPES, PackDict, check_launch, check_pack, check_shapes,
+                             pack_dtype, pack_weights, ptr, rounder, softmax_attend,
+                             split_products, weight_matmul)
+
+# Launches of the CUDA kernel in this process; encoder_block_stack() adds one per launch.
+LAUNCHES = 0
+
+SOURCE = CSRC / "encoder_block_stack.cu"
+HEADERS = (CSRC / "block_stack_common.cuh",)
+BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
+_LIB = None
+
+
+class _EncParams(ctypes.Structure):
+    """Mirror of ``EncParams`` in csrc/encoder_block_stack.cu."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "wqkv", "wout", "wfc1", "wfc2", "bqkv", "bout", "bfc1", "bfc2", "ln1s",
+        "ln1b", "ln2s", "ln2b", "sqkv", "sout", "sfc1", "sfc2", "y", "qkv", "attn",
+        "h", "partial")] + [(n, ctypes.c_int) for n in ("B", "T", "d", "H", "hidden", "depth")
+                            ] + [("eps", ctypes.c_float)] + [(n, ctypes.c_int) for n in (
+                                "wtype", "sp_qkv", "sp_out", "sp_fc1", "sp_fc2")]
+
+
+@torch.no_grad()
+def pack_encoder_weights(layers, dtype: torch.dtype = torch.float32) -> PackDict:
+    """Pack the stacked encoder layers (``Wav2VecEncoder.encoder.layers``).
+
+    Returns ``wqkv`` (depth, d, 3d), ``wout`` (depth, d, d), ``wfc1`` (depth, d,
+    hidden), ``wfc2`` (depth, hidden, d) in ``dtype``; float32 biases ``bqkv``,
+    ``bout``, ``bfc1``, ``bfc2`` and LayerNorm rows ``ln1s``, ``ln1b``, ``ln2s``,
+    ``ln2b``; for int8 the scales ``sqkv``, ``sout``, ``sfc1`` and ``sfc2``."""
+    if dtype not in WEIGHT_TYPES:
+        raise ValueError(f"pack dtype {dtype} is not float32, bfloat16 or int8")
+    d = layers.q.w.shape[-1]
+    pack = pack_weights({
+        "wqkv": torch.cat([layers.q.w, layers.k.w, layers.v.w], dim=-1),
+        "wout": layers.out.w, "wfc1": layers.fc1.w, "wfc2": layers.fc2.w}, dtype, d)
+    pack["bqkv"] = torch.cat([layers.q.b, layers.k.b, layers.v.b], dim=-1).float()
+    for name, t in (("bout", layers.out.b), ("bfc1", layers.fc1.b), ("bfc2", layers.fc2.b),
+                    ("ln1s", layers.norm1.scale), ("ln1b", layers.norm1.bias),
+                    ("ln2s", layers.norm2.scale), ("ln2b", layers.norm2.bias)):
+        pack[name] = t.float().contiguous()
+    return pack
+
+
+def pack_batched_ok(pack: PackDict) -> bool:
+    """May this pack run at batch > 1 (several windows)? The JAX package keeps
+    float32 packs on the layer-by-layer path there (its half-width float32
+    tiles are a parity mode, not a speed path), and the port routes alike."""
+    return pack_dtype(pack) != torch.float32
+
+
+def encoder_block_stack_plain(x: torch.Tensor, pack: PackDict, *, num_heads: int,
+                              eps: float = 1e-5) -> torch.Tensor:
+    """Plain-torch version of ``encoder_block_stack``, window by window."""
+    if x.shape[0] != 1:
+        return torch.cat([encoder_block_stack_plain(x[i:i + 1], pack, num_heads=num_heads,
+                                                    eps=eps) for i in range(x.shape[0])])
+    rnd = rounder(pack)
+    x = x.float()
+    hd = x.shape[-1] // num_heads
+    for i in range(pack["wqkv"].shape[0]):
+        def sc(name):
+            return pack[name][i] if name in pack else None
+
+        y = tnn.layer_norm(x, eps, pack["ln1s"][i], pack["ln1b"][i])
+        qkv = weight_matmul(y, pack["wqkv"][i], sc("sqkv"), rnd) + pack["bqkv"][i]
+        q, k, v = (tnn.split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+        attn = tnn.merge_heads(softmax_attend(q, k, v, rnd, logit_scale=hd ** -0.5))
+        x = x + (weight_matmul(attn, pack["wout"][i], sc("sout"), rnd) + pack["bout"][i])
+        y = tnn.layer_norm(x, eps, pack["ln2s"][i], pack["ln2b"][i])
+        h = tnn.gelu_erf(weight_matmul(y, pack["wfc1"][i], sc("sfc1"), rnd) + pack["bfc1"][i])
+        x = x + (weight_matmul(h, pack["wfc2"][i], sc("sfc2"), rnd) + pack["bfc2"][i])
+    return x
+
+
+def build() -> float:
+    """Build (or reuse) and load the kernel's shared library. Returns the
+    seconds spent, 0.0 when it was already loaded."""
+    global _LIB, BUILD_REPORT
+    if _LIB is not None:
+        return 0.0
+    lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
+    lib.artalk_encoder_block_stack.argtypes = [ctypes.POINTER(_EncParams), ctypes.c_void_p]
+    lib.artalk_encoder_block_stack.restype = ctypes.c_int
+    _LIB = lib
+    return seconds
+
+
+def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """Run (B, T, d) tokens (B windows) through the whole pre-LN encoder stack;
+    returns (B, T, d) float32. A CPU tensor goes through
+    ``encoder_block_stack_plain``."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return encoder_block_stack_plain(x, pack, num_heads=num_heads, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"encoder_block_stack: unsupported device {x.device}")
+    if x.ndim != 3:
+        raise ValueError(f"encoder_block_stack: want (B, T, d) tokens, got {tuple(x.shape)}")
+    b, t, d = x.shape
+    depth, hidden = pack["wfc1"].shape[0], pack["wfc1"].shape[2]
+    check_shapes(d, hidden, num_heads)
+    if pack["wqkv"].shape != (depth, d, 3 * d):
+        raise ValueError(f"pack wqkv {tuple(pack['wqkv'].shape)} does not fit d={d}")
+    check_pack(pack, x.device)
+    build()
+    x = x.float().contiguous()
+    m = b * t
+    dev = x.device
+    y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
+    qkv = torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
+    attn = torch.empty((m, d), dtype=torch.float32, device=dev)
+    h = torch.empty((m, hidden), dtype=torch.float32, device=dev)
+    splits, partial = split_products(t, b, d, hidden, dev)
+    params = _EncParams(
+        x=ptr(x), wqkv=ptr(pack["wqkv"]), wout=ptr(pack["wout"]), wfc1=ptr(pack["wfc1"]),
+        wfc2=ptr(pack["wfc2"]), bqkv=ptr(pack["bqkv"]), bout=ptr(pack["bout"]),
+        bfc1=ptr(pack["bfc1"]), bfc2=ptr(pack["bfc2"]), ln1s=ptr(pack["ln1s"]),
+        ln1b=ptr(pack["ln1b"]), ln2s=ptr(pack["ln2s"]), ln2b=ptr(pack["ln2b"]),
+        sqkv=ptr(pack.get("sqkv")), sout=ptr(pack.get("sout")), sfc1=ptr(pack.get("sfc1")),
+        sfc2=ptr(pack.get("sfc2")), y=ptr(y), qkv=ptr(qkv), attn=ptr(attn), h=ptr(h),
+        partial=ptr(partial), B=b, T=t, d=d, H=num_heads, hidden=hidden, depth=depth,
+        eps=eps, wtype=WEIGHT_TYPES[pack_dtype(pack)], sp_qkv=splits[0], sp_out=splits[1],
+        sp_fc1=splits[2], sp_fc2=splits[3])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check_launch("encoder_block_stack",
+                 _LIB.artalk_encoder_block_stack(ctypes.byref(params), stream))
+    LAUNCHES += 1
+    return y

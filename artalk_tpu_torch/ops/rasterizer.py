@@ -20,15 +20,11 @@ in the package, into ``_build/`` beside it, and named by the source's hash.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Tuple
 
 import torch
+
+from ._nvcc import CSRC, build_library
 
 FACE_CHUNK = 128   # faces per culling chunk
 BIG = 3.4e38
@@ -38,9 +34,7 @@ _PLAIN_ROWS = 8    # pixel rows per band of rasterize_plain
 # Launches of the CUDA kernel in this process; rasterize() adds one per launch.
 LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "rasterizer.cu"
-_BUILD_DIR = _PKG / "_build"
+SOURCE = CSRC / "rasterizer.cu"
 _LIB = None
 
 
@@ -106,26 +100,13 @@ def build() -> float:
     global _LIB
     if _LIB is not None:
         return 0.0
-    t0 = time.perf_counter()
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"librasterizer-{digest}.so"
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, seconds, _ = build_library(SOURCE)
     fn = lib.artalk_rasterize
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _LIB = lib
-    return time.perf_counter() - t0
+    return seconds
 
 
 def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor, *,

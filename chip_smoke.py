@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""GPU smoke run of artalk_tpu_torch: builds the CUDA rasterizer, checks it
+"""GPU smoke run of artalk_tpu_torch: builds the CUDA kernels, checks each
 against its plain version, replays the seed-0 goldens, and drives the
-speech -> mesh-video path once at the production width.
+speech -> mesh-video path at the production width in every precision mode,
+and StreamPool.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
 Phases (any failure raises and exits non-zero; no phase catches its own):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the rasterizer from artalk_tpu_torch/csrc/ and print the seconds;
+  2. build the three kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
+     once) and print the seconds and nvcc's register / shared-memory report;
   3. kernel vs plain version on the synthetic FLAME head at 512x512, 4 frames:
      face ids agree on >= 99.9 % of pixels, background exactly, zbuf to
      rtol 1e-4 where both hit; ms per frame of both;
@@ -19,7 +21,37 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      ModelConfig and random seed-0 weights on 10 s of seeded noise:
      inference -> (250, 106) finite; stream over 4 s chunks equals the raw
      offline decode to atol 1e-4; rendering(shape_id="mesh") at 512x512 gives
-     250 frames; the rasterizer kernel launched at least 250 times on the way.
+     250 frames; the rasterizer kernel launched at least 250 times on the way;
+  6. AR block stack vs ar_block_stack_plain at the production geometry (12
+     blocks, d 768), every level at its real cache offset, B = 1 and B = 5,
+     float32 / bf16 / int8 packs: float32 feats within 1e-4 and k/v within
+     1e-5, bf16/int8 feats within 3e-3 and k/v within 2 bf16 ulps of their
+     largest value; each row of B = 5 within 1e-6 of the same row run alone;
+     for bf16/int8 the first block alone within ONE_BLOCK's limits, which
+     two planted faults (activations left unrounded, int8 fc2 with one scale
+     per channel) must break;
+  7. encoder block stack vs encoder_block_stack_plain at (1, 199, 1024), 24
+     layers: float32 within atol = rtol 1e-4, bf16 and int8 0.04; two
+     windows in one launch equal each window alone exactly; for bf16/int8 the
+     first layer alone as in phase 6;
+  8. full width per mode (ARTALK_AR_FUSED=1, fast, fast + fused, int8), each on
+     a fresh engine: inference -> (250, 106) finite, stream equals offline to
+     1e-4, 5 AR launches and 1 encoder launch per window in the fused modes
+     and none in fast alone, and the share of window-0 code bits that agree
+     with the exact mode (>= 0.999 float32 fused, >= 0.9 otherwise);
+  9. StreamPool, int8, capacity 4: two sessions, one joining late, with idle
+     ticks; each session's motions equal the same session run alone in a pool
+     of the same capacity to 1e-5, and its decoded code bits agree with its
+     audio streamed alone through engine.stream at batch 1 on >= 0.97 of
+     each window, which two planted faults (rows crossed, an idle row's
+     carry lost) must break;
+ 10. times by CUDA events at the main path's shapes: each block-stack kernel
+     and its plain version per pack (per level and per window), the encoder's
+     library yardstick (torch.nn.TransformerEncoder, float32 without TF32 and
+     bf16), and each kernel's bound (the larger of bytes over 3.35 TB/s and
+     operations over 67 TFLOP/s fp32 or 989 TFLOP/s bf16); the rasterizer's
+     bound is computed in phase 3 (each face tested against the pixels of
+     its own bounding box).
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -33,6 +65,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,6 +74,8 @@ from artalk_tpu_torch import config as tcfg
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
 from artalk_tpu_torch.models.flame import FlameModel
 from artalk_tpu_torch.models.renderer import MeshRenderer
+from artalk_tpu_torch.ops import ar_block_stack as ar_stack
+from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
 from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
@@ -48,6 +83,36 @@ from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 IMAGE = 512
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM
+FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense
+MODES = {  # environment of each precision mode of phase 8
+    "fused": {"ARTALK_AR_FUSED": "1"},
+    "fast": {"ARTALK_AR_PRECISION": "fast"},
+    "fast+fused": {"ARTALK_AR_PRECISION": "fast", "ARTALK_AR_FUSED": "1"},
+    "int8": {"ARTALK_AR_PRECISION": "int8"},
+}
+PACK_OF_MODE = {"fused": torch.float32, "fast+fused": torch.bfloat16, "int8": torch.int8}
+# Limits of the bf16/int8 block stacks against their plain versions. Through
+# the whole stack, a bf16 rounding that falls the other way in one operand is
+# amplified until it is as large as a real fault would be, so the whole-stack
+# limits (max abs error; encoder atol = rtol) catch gross faults only, and the
+# first block alone, where that noise is still small, is held to ONE_BLOCK:
+# rms error over the rms of the block's contribution, and for the AR stack the
+# share of k/v values that differ at all. Each limit lies between the
+# kernel's reading on the card and the smallest planted fault's (NVIDIA H100
+# 80GB HBM3, 700 W: AR rms 2.2e-4 against 1.6e-3, k/v changed 0.04 % against
+# 43 %; encoder rms 6.1e-4 (bf16) against 2.4e-3, and 3.9e-4 (int8) against
+# 1.1e-3). See PERF.md, PR 2.
+AR_FEATS_TOL = 3e-3
+ENCODER_TOL = {"f32": 1e-4, "bf16": 0.04, "int8": 0.04}
+ONE_BLOCK = {"ar/bf16": {"rms": 6e-4, "changed": 0.01},
+             "ar/int8": {"rms": 6e-4, "changed": 0.01},
+             "encoder/bf16": {"rms": 1.2e-3},
+             "encoder/int8": {"rms": 6.5e-4}}
+# least share of a window's code bits on which a StreamPool session agrees
+# with the same audio streamed alone at batch 1
+POOL_BITS_AGREE = 0.97
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -87,8 +152,16 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    seconds = rasterizer.build()
-    print(f"[build] rasterizer from {os.path.relpath(rasterizer.SOURCE, ROOT)}: {seconds:.2f} s")
+    """All three libraries at once: nvcc runs in a subprocess each."""
+    t0 = time.perf_counter()
+    mods = (rasterizer, ar_stack, enc_stack)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        seconds = list(pool.map(lambda m: m.build(), mods))
+    for mod, sec in zip(mods, seconds):
+        print(f"[build] {os.path.relpath(mod.SOURCE, ROOT)}: {sec:.2f} s")
+        for line in getattr(mod, "BUILD_REPORT", "").splitlines()[:2]:
+            print(f"[build]   {line.strip()}")
+    print(f"[build] all three in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
@@ -134,9 +207,28 @@ def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
     print(f"[kernel] {len(faces)} faces, {num_chunks} chunks, {IMAGE}x{IMAGE}: face ids agree "
           f"on {min(agree):.6f} (bit-identical: {identical}), covered {np.mean(covered):.3f}, "
           f"zbuf max abs err {max_err:.3g}")
+    # bound: the bytes it must move, or the coverage tests the z-buffer
+    # needs, each face against the pixel centres of its own bounding box (13
+    # fp32 operations each: three planes of 2 mul + 2 add, and w0 + w1),
+    # whichever takes longer
+    tests = []
+    for vs in screens:
+        tri = vs[faces.long()]                                     # (F, 3, 3)
+        lo = torch.ceil(tri[..., :2].amin(1) - 0.5).clamp(min=0)
+        hi = torch.floor(tri[..., :2].amax(1) - 0.5).clamp(max=IMAGE - 1)
+        tests.append(int((hi - lo + 1).clamp(min=0).prod(1).sum()))
+    moved = planes.numel() * 4 + bbox.numel() * 4 + IMAGE * IMAGE * 8
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = float(np.mean(tests)) * 13 / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     print(f"[kernel] ms/frame: rasterize (setup + kernel) {ms:.4f}, kernel alone "
           f"{kernel_only_ms:.4f}, rasterize_plain {plain_ms:.4f}")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    print(f"[kernel] bound: {moved} bytes -> {bytes_ms:.5f} ms; {np.mean(tests):.0f} coverage "
+          f"tests a frame x 13 FLOP -> {ops_ms:.5f} ms; the kernel alone reaches "
+          f"{bound_ms / kernel_only_ms:.3f} of the bound")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "library_ms": None, "kernel_only_ms": kernel_only_ms}
 
 
 def phase_golden(dev: torch.device) -> None:
@@ -165,22 +257,37 @@ def phase_golden(dev: torch.device) -> None:
         raise AssertionError(f"golden motions off by {motion_err:.3g} with equal bits")
 
 
-def phase_full(dev: torch.device, image: int = IMAGE) -> int:
+def noise_audio(sample_rate: int, seconds: int = 10, seed: int = 10) -> np.ndarray:
+    return (np.random.default_rng(seed).standard_normal(seconds * sample_rate) * 0.1
+            ).astype(np.float32)
+
+
+def window0_bits(engine: ARTAvatarInferEngine, audio: np.ndarray) -> np.ndarray:
+    """Greedy code bits of the first window from the bootstrap carry."""
+    model = engine.model
+    chunk = torch.from_numpy(audio[None, : model.window_samples]).to(engine.device)
+    style = model.encode_style(None)
+    state = model.initial_state(style)
+    return model.decode_window(model.audio_condition(chunk), style,
+                               state.prev_attn_feat).cpu().numpy()
+
+
+def phase_full(dev: torch.device, image: int = IMAGE):
     """The production-width path through the engine's entry points. Returns
-    the rasterizer launches counted during it."""
+    the rasterizer launches counted during it, the first window's code bits
+    and the ms per window of inference."""
     out_dir = os.path.join(ROOT, "render_results", "chip_smoke")
     engine = ARTAvatarInferEngine(device=dev, config=tcfg.ModelConfig(),
                                   assets_dir=os.path.join(ROOT, "assets"),
                                   output_dir=out_dir, image_size=image, seed=0)
     cfg = engine.cfg
     n_params = sum(p.numel() for p in engine.model.parameters())
-    audio = (np.random.default_rng(10).standard_normal(10 * cfg.sample_rate) * 0.1
-             ).astype(np.float32)
+    audio = noise_audio(cfg.sample_rate)
     ws = engine.model.window_samples
     n_windows = math.ceil(len(audio) / ws)
     engine.inference(audio[:ws])  # warm-up: cuBLAS/cuDNN handles and autotuning
 
-    rasterizer.LAUNCHES = 0
+    rasterizer.LAUNCHES = ar_stack.LAUNCHES = enc_stack.LAUNCHES = 0
     t0 = time.perf_counter()
     motions = engine.inference(audio)
     t_inf = time.perf_counter() - t0
@@ -190,6 +297,8 @@ def phase_full(dev: torch.device, image: int = IMAGE) -> int:
     out_path = engine.rendering(audio, motions, shape_id="mesh", save_name="chip_smoke")
     t_render = time.perf_counter() - t0
     launches = rasterizer.LAUNCHES
+    if ar_stack.LAUNCHES or enc_stack.LAUNCHES:
+        raise AssertionError("the exact path launched a block-stack kernel")
 
     if motions.shape != (250, 106) or not np.isfinite(motions).all():
         raise AssertionError(f"inference gave {motions.shape}, finite={np.isfinite(motions).all()}")
@@ -226,25 +335,543 @@ def phase_full(dev: torch.device, image: int = IMAGE) -> int:
           f"{t_render * 1e3 / 250:.2f} ms/frame; render_frames alone "
           f"{t_frames * 1e3 / 250:.2f} ms/frame; {launches} kernel launches")
     print(f"[full] wrote {out_path} ({n_frames if n_frames is not None else 'encoded'} frames)")
-    return launches
+    return launches, window0_bits(engine, audio), t_inf * 1e3 / n_windows
+
+
+def ar_inputs(model, b: int, level: int, cache_dtype: torch.dtype, seed: int):
+    """Seeded tokens, AdaLN parameters and merged-head caches of one level."""
+    g = torch.Generator().manual_seed(seed)
+    depth, d, h = model.depth, model.embed_dim, model.num_heads
+    pn = model.patch_nums[level]
+    x = torch.randn((b, pn, d), generator=g) * 0.3
+    ada = torch.randn((depth, b, pn, 6 * d), generator=g) * 0.1
+    keys = torch.randn((depth, b, model.cache_len, h, d // h), generator=g)
+    kc = (keys / keys.norm(dim=-1, keepdim=True)).reshape(depth, b, model.cache_len, d)
+    vc = torch.randn((depth, b, model.cache_len, d), generator=g) * 0.5
+    dev = model.pos_embed.device
+    return (x.to(dev), ada.to(dev), kc.to(dev, cache_dtype), vc.to(dev, cache_dtype),
+            model.prev_len + model.offsets[level])
+
+
+def bf16_ulps_of_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in bfloat16 ulps at the largest magnitude of ``want``."""
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    return (got.float() - want.float()).abs().max().item() / ulp
+
+
+def first_block(pack: dict) -> dict:
+    """The pack of the stack's first block (layer) alone."""
+    return {k: v[:1].contiguous() for k, v in pack.items()}
+
+
+def planted_faults(pack: dict) -> dict:
+    """Faults a reduced-precision block-stack kernel could have, made as packs
+    for the plain version: "unrounded" holds the same weight values in
+    float32, so the activations reach the products unrounded; for int8,
+    "fc2_one_scale" applies the first chunk's fc2 scale to the whole hidden
+    contraction."""
+    unrounded = {}
+    for name, t in pack.items():
+        if name.startswith("s"):
+            continue
+        scales = pack.get("s" + name[1:]) if name.startswith("w") else None
+        if scales is not None:
+            depth, k, n = t.shape
+            t = (t.float().reshape(depth, scales.shape[1], k // scales.shape[1], n)
+                 * scales[:, :, None]).reshape(depth, k, n)
+        unrounded[name] = t.float()
+    faults = {"unrounded": unrounded}
+    if "sfc2" in pack:
+        faults["fc2_one_scale"] = {**pack, "sfc2": pack["sfc2"][:, :1].expand_as(
+            pack["sfc2"]).contiguous()}
+    return faults
+
+
+def branch_rms_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> float:
+    """rms of got - want over the rms of the blocks' contribution want - x."""
+    return ((got - want).pow(2).mean().sqrt() / (want - x).pow(2).mean().sqrt()).item()
+
+
+def check_one_block(kind: str, name: str, kernel: dict, faults: dict) -> None:
+    """Hold a one-block reading (``rms``, and for the AR stack the share of
+    k/v values ``changed``) to ONE_BLOCK's limits, and require every planted
+    fault to break one of them."""
+    limits = ONE_BLOCK[f"{kind}/{name}"]
+    over = lambda r: any(r[key] > lim for key, lim in limits.items())  # noqa: E731
+    show = lambda r: ", ".join(f"{key} {r[key]:.3g}" for key in limits)  # noqa: E731
+    print(f"[{kind}] {name} pack, first block alone: kernel {show(kernel)} (limits "
+          + ", ".join(f"{key} {lim}" for key, lim in limits.items()) + "); planted faults: "
+          + "; ".join(f"{f} {show(r)}" for f, r in faults.items()))
+    if over(kernel):
+        raise AssertionError(f"{name} {kind} stack, one block: {show(kernel)} over the limits")
+    caught = {f: over(r) for f, r in faults.items()}
+    if not all(caught.values()):
+        raise AssertionError(f"{kind} one-block limits let a planted fault pass: {caught}")
+
+
+def phase_ar_one_block(model, name: str, pack: dict) -> None:
+    """The first AR block alone at the production width, where rounding noise
+    has not yet been amplified through the stack, against its plain version
+    and against the plain version with planted faults."""
+    p1 = first_block(pack)
+    faults = planted_faults(p1)
+    kernel = {"rms": 0.0, "changed": 0.0}
+    bad = {f: {"rms": 0.0, "changed": 0.0} for f in faults}
+    for level in range(len(model.patch_nums)):
+        x, ada, kc, vc, start = ar_inputs(model, 5, level, torch.bfloat16, seed=100 + level)
+        ada, kc, vc = ada[:1].contiguous(), kc[:1].contiguous(), vc[:1].contiguous()
+        args = dict(start=start, num_heads=model.num_heads)
+        want = ar_stack.ar_block_stack_plain(x, ada, p1, kc, vc, **args)
+        runs = {f: ar_stack.ar_block_stack_plain(x, ada, fp, kc, vc, **args)
+                for f, fp in faults.items()}
+        runs[None] = ar_stack.ar_block_stack(x, ada, p1, kc, vc, **args)
+        for f, got in runs.items():
+            r = kernel if f is None else bad[f]
+            r["rms"] = max(r["rms"], branch_rms_err(got[0], want[0], x))
+            r["changed"] = max(r["changed"], *(float((g != w).float().mean())
+                                               for g, w in zip(got[1:], want[1:])))
+    check_one_block("ar", name, kernel, bad)
+
+
+def phase_ar_kernel(model, packs: dict) -> dict:
+    """The AR block stack against its plain version at every level, B = 1
+    and 5, per pack, and its first block alone for the bf16/int8 packs.
+    Returns the max abs feats error per pack name."""
+    errs = {}
+    for name, pack in packs.items():
+        cache_dtype = torch.float32 if name == "f32" else torch.bfloat16
+        feats_err = kv_err = row_err = 0.0
+        # the planted faults through the whole stack, for the record
+        faults = planted_faults(pack) if name != "f32" else {}
+        fault_err = dict.fromkeys(faults, 0.0)
+        for level in range(len(model.patch_nums)):
+            x, ada, kc, vc, start = ar_inputs(model, 5, level, cache_dtype, seed=100 + level)
+            args = dict(start=start, num_heads=model.num_heads)
+            for b in (1, 5):
+                xs, adas, kcs, vcs = x[:b], ada[:, :b].contiguous(), kc[:, :b].contiguous(), \
+                    vc[:, :b].contiguous()
+                got = ar_stack.ar_block_stack(xs, adas, pack, kcs, vcs, **args)
+                want = ar_stack.ar_block_stack_plain(xs, adas, pack, kcs, vcs, **args)
+                feats_err = max(feats_err, (got[0] - want[0]).abs().max().item())
+                if name == "f32":
+                    kv_err = max(kv_err, *((g - w).abs().max().item()
+                                           for g, w in zip(got[1:], want[1:])))
+                else:
+                    kv_err = max(kv_err, *(bf16_ulps_of_max(g, w)
+                                           for g, w in zip(got[1:], want[1:])))
+                for f, fp in faults.items() if b == 1 else ():
+                    bad = ar_stack.ar_block_stack_plain(xs, adas, fp, kcs, vcs, **args)[0]
+                    fault_err[f] = max(fault_err[f], (bad - want[0]).abs().max().item())
+                if b == 5:
+                    for r in range(5):
+                        one = ar_stack.ar_block_stack(x[r:r + 1], ada[:, r:r + 1].contiguous(),
+                                                      pack, kc[:, r:r + 1].contiguous(),
+                                                      vc[:, r:r + 1].contiguous(), **args)
+                        row_err = max(row_err, (one[0] - got[0][r:r + 1]).abs().max().item(),
+                                      *((o.float() - g[:, r:r + 1].float()).abs().max().item()
+                                        for o, g in zip(one[1:], got[1:])))
+        torch.cuda.synchronize()
+        kv_unit = "max abs err" if name == "f32" else "bf16 ulps at the largest value"
+        print(f"[ar] {name} pack: feats max abs err {feats_err:.3g}, k/v {kv_unit} "
+              f"{kv_err:.3g}, B=5 rows vs alone {row_err:.3g}"
+              + "".join(f"; planted fault {f}: feats {e:.3g}" for f, e in fault_err.items()))
+        if name == "f32" and (feats_err > 1e-4 or kv_err > 1e-5):
+            raise AssertionError(f"f32 AR stack off: feats {feats_err:.3g}, k/v {kv_err:.3g}")
+        if name != "f32" and (feats_err > AR_FEATS_TOL or kv_err > 2):
+            raise AssertionError(f"{name} AR stack off: feats {feats_err:.3g} (limit "
+                                 f"{AR_FEATS_TOL}), k/v {kv_err:.3g} bf16 ulps (limit 2)")
+        if row_err > 1e-6:
+            raise AssertionError(f"{name} AR stack: a B=5 row differs from B=1 by {row_err:.3g}")
+        if name != "f32":
+            phase_ar_one_block(model, name, pack)
+        errs[name] = feats_err
+    return errs
+
+
+def encoder_input(model, b: int = 1) -> torch.Tensor:
+    g = torch.Generator().manual_seed(200)
+    t = model.audio_encoder.num_output_frames(model.window_samples)
+    x = torch.randn((b, t, model.cfg.wav2vec.hidden_size), generator=g) * 0.5
+    return x.to(model.pos_embed.device)
+
+
+def phase_encoder_one_layer(model, name: str, pack: dict) -> None:
+    """The first encoder layer alone, against its plain version and against
+    the plain version with planted faults."""
+    heads = model.cfg.wav2vec.num_attention_heads
+    x = encoder_input(model)
+    p1 = first_block(pack)
+    want = enc_stack.encoder_block_stack_plain(x, p1, num_heads=heads)
+    kernel = {"rms": branch_rms_err(enc_stack.encoder_block_stack(x, p1, num_heads=heads),
+                                    want, x)}
+    bad = {f: {"rms": branch_rms_err(enc_stack.encoder_block_stack_plain(
+        x, fp, num_heads=heads), want, x)} for f, fp in planted_faults(p1).items()}
+    check_one_block("encoder", name, kernel, bad)
+
+
+def phase_encoder_kernel(model, packs: dict) -> dict:
+    """The encoder stack against its plain version per pack, two windows in
+    one launch against each alone, and for the bf16/int8 packs the first
+    layer alone."""
+    heads = model.cfg.wav2vec.num_attention_heads
+    x = encoder_input(model, 2)
+    errs = {}
+    for name, pack in packs.items():
+        tol = ENCODER_TOL[name]
+        got = enc_stack.encoder_block_stack(x[:1], pack, num_heads=heads)
+        want = enc_stack.encoder_block_stack_plain(x[:1], pack, num_heads=heads)
+        err = (got - want).abs().max().item()
+        rel = ((got - want).abs() / (tol + tol * want.abs())).max().item()
+        both = enc_stack.encoder_block_stack(x, pack, num_heads=heads)
+        same = torch.equal(both[:1], got) and torch.equal(
+            both[1:], enc_stack.encoder_block_stack(x[1:], pack, num_heads=heads))
+        torch.cuda.synchronize()
+        fault_err = {f: (enc_stack.encoder_block_stack_plain(x[:1], fp, num_heads=heads)
+                         - want).abs().max().item()
+                     for f, fp in (planted_faults(pack) if name != "f32" else {}).items()}
+        print(f"[encoder] {name} pack: max abs err {err:.3g} (atol = rtol {tol}: "
+              f"{rel:.3f} of the bound); two windows in one launch equal each alone: {same}"
+              + "".join(f"; planted fault {f}: {e:.3g}" for f, e in fault_err.items()))
+        if rel > 1.0 or not same:
+            raise AssertionError(f"{name} encoder stack off the plain version")
+        if name != "f32":
+            phase_encoder_one_layer(model, name, pack)
+        errs[name] = err
+    return errs
+
+
+def with_env(env: dict, fn):
+    """Run ``fn()`` with the precision switches set to ``env``."""
+    keys = ("ARTALK_AR_PRECISION", "ARTALK_AR_FUSED")
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
+    """One precision mode at full width through the engine's entry points.
+    Returns the engine and the mode's numbers."""
+    engine = with_env(MODES[mode], lambda: ARTAvatarInferEngine(
+        device=dev, config=tcfg.ModelConfig(), assets_dir=os.path.join(ROOT, "assets"),
+        output_dir=os.path.join(ROOT, "render_results", "chip_smoke"), image_size=IMAGE,
+        seed=0))
+    cfg = engine.cfg
+    audio = noise_audio(cfg.sample_rate)
+    ws = engine.model.window_samples
+    n_windows = math.ceil(len(audio) / ws)
+    engine.inference(audio[:ws])  # warm-up
+
+    ar_stack.LAUNCHES = enc_stack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    motions = engine.inference(audio)
+    ms_window = (time.perf_counter() - t0) * 1e3 / n_windows
+    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    streamed = np.concatenate(list(engine.stream(
+        audio[i : i + ws] for i in range(0, len(audio), ws))), axis=0)
+    stream_launches = {"ar": ar_stack.LAUNCHES - launches["ar"],
+                       "encoder": enc_stack.LAUNCHES - launches["encoder"]}
+
+    if motions.shape != (250, 106) or not np.isfinite(motions).all():
+        raise AssertionError(f"[{mode}] inference gave {motions.shape}")
+    padded = np.zeros(n_windows * ws, np.float32)
+    padded[: len(audio)] = audio
+    offline = engine.model.generate(
+        torch.from_numpy(padded.reshape(n_windows, 1, ws)).to(dev),
+        engine.model.encode_style(None))[0, :250].cpu().numpy()
+    stream_err = float(np.abs(streamed - offline).max())
+    if stream_err > 1e-4:
+        raise AssertionError(f"[{mode}] stream vs offline max abs err {stream_err:.3g}")
+    fused = cfg.fused_ar
+    levels = len(engine.model.patch_nums)
+    want = {"ar": levels * n_windows if fused else 0, "encoder": n_windows if fused else 0}
+    if launches != want or stream_launches != want:
+        raise AssertionError(f"[{mode}] launches {launches} / stream {stream_launches}, "
+                             f"want {want} each")
+    agree = float((window0_bits(engine, audio) == exact_bits).mean())
+    print(f"[mode {mode}] inference {ms_window:.2f} ms/window; stream vs offline max abs err "
+          f"{stream_err:.3g}; launches per {n_windows} windows: inference {launches}, "
+          f"stream {stream_launches}; window-0 code bits agreeing with exact {agree:.4f}")
+    floor = 0.999 if mode == "fused" else 0.9
+    if agree < floor:
+        raise AssertionError(f"[{mode}] only {agree:.4f} of the code bits agree with exact")
+    return engine, {"ms_window": ms_window, "launches": launches, "agree": agree}
+
+
+class DecodedBits:
+    """Records the greedy code bits of every ``decode_window`` call of
+    ``model`` while in use: a probe of the pool's rows and of batch-1 streams
+    alike."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def __enter__(self):
+        decode = self.model.decode_window
+
+        def recorded(*args):
+            bits = decode(*args)
+            self.calls.append(bits.cpu().numpy())
+            return bits
+
+        self.model.decode_window = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        del self.model.decode_window
+
+
+def pool_scenario(pool, a: list, b: list):
+    """Session a joins, b joins late, then each idles one tick. Returns, per
+    session, (motions, decoded code bits) of each of its windows."""
+    got = {}
+    with DecodedBits(pool.model) as calls:
+        def tick(chunks):
+            out = pool.step(chunks)
+            for sid in chunks:
+                got.setdefault(sid, []).append((out[sid], calls[-1][sid]))
+
+        sa = pool.open_session()
+        tick({sa: a[0]})
+        sb = pool.open_session()
+        tick({sa: a[1], sb: b[0]})
+        tick({sa: a[2]})        # b idles
+        tick({sb: b[1]})        # a idles
+    return got[sa], got[sb]
+
+
+def stream_windows(engine: ARTAvatarInferEngine, chunks: list) -> list:
+    """engine.stream at batch 1: (motions, decoded code bits) per chunk."""
+    with DecodedBits(engine.model) as calls:
+        motions = list(engine.stream(chunks))
+    return [(m, c[0]) for m, c in zip(motions, calls)]
+
+
+def bits_agree(x: tuple, y: tuple) -> float:
+    return float((x[1] == y[1]).mean())
+
+
+def phase_pool(engine: ARTAvatarInferEngine) -> dict:
+    """StreamPool at capacity 4 (the batched kernel path): two sessions, one
+    joining late, with idle ticks. Each session must equal itself run alone
+    in a pool of the same capacity to 1e-5 (session isolation), and agree
+    with the same audio streamed alone at batch 1 through engine.stream on at
+    least POOL_BITS_AGREE of its decoded code bits in every window. Motions
+    are not held to 1e-5 there: PyTorch's reductions and cuBLAS/cuDNN pick
+    other algorithms for 4 rows than for 1, and bf16 rounding and the greedy
+    bits amplify that rounding-level change. Two planted faults must fail the
+    bits check: rows crossed (a's windows against b's stream) and an idle
+    row whose carry is not kept (b's stream with a silent window between)."""
+    from artalk_tpu_torch.serving import StreamPool
+
+    ws = engine.model.window_samples
+    rng = np.random.default_rng(30)
+    a = [(rng.standard_normal(ws) * 0.1).astype(np.float32) for _ in range(3)]
+    b = [(rng.standard_normal(ws) * 0.1).astype(np.float32) for _ in range(2)]
+    pool = StreamPool(engine.model, max_sessions=4)
+    ar_stack.LAUNCHES = enc_stack.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got_a, got_b = pool_scenario(pool, a, b)
+    ms_tick = (time.perf_counter() - t0) * 1e3 / 4
+    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+
+    alone = StreamPool(engine.model, max_sessions=4)
+    sa = alone.open_session()
+    alone_a = [alone.step({sa: c})[sa] for c in a]
+    alone = StreamPool(engine.model, max_sessions=4)
+    alone.open_session()
+    sb = alone.open_session()                     # b keeps its slot
+    alone_b = [alone.step({sb: c})[sb] for c in b]
+    iso_err = max(float(np.abs(g[0] - w).max())
+                  for g, w in zip(got_a + got_b, alone_a + alone_b))
+    stream_a, stream_b = stream_windows(engine, a), stream_windows(engine, b)
+    pairs = list(zip(got_a + got_b, stream_a + stream_b))
+    diffs = [np.abs(g[0] - w[0]) for g, w in pairs]
+    stream_err = max(float(d.max()) for d in diffs)
+    within = float(np.mean(np.concatenate([d.ravel() for d in diffs]) <= 1e-5))
+    agree = [bits_agree(g, w) for g, w in pairs]
+    idle_kept = stream_windows(engine, [b[0], np.zeros(ws, np.float32), b[1]])[2]
+    faults = {"rows crossed": max(bits_agree(g, w) for g, w in zip(got_a, stream_b)),
+              "idle carry lost": bits_agree(got_b[1], idle_kept)}
+    print(f"[pool] int8, capacity 4, 2 sessions over 4 ticks: {ms_tick:.2f} ms/tick, "
+          f"launches {launches}; max abs err vs each session alone in the pool "
+          f"{iso_err:.3g}; vs engine.stream at batch 1: code bits agreeing per window "
+          + ", ".join(f"{x:.4f}" for x in agree) + f" (limit {POOL_BITS_AGREE}), motions max "
+          f"abs err {stream_err:.3g}, {within:.4f} of the values within 1e-5; planted "
+          "faults: " + ", ".join(f"{f} {x:.4f}" for f, x in faults.items()))
+    if iso_err > 1e-5:
+        raise AssertionError(f"StreamPool sessions interfere: {iso_err:.3g} > 1e-5")
+    if min(agree) < POOL_BITS_AGREE:
+        raise AssertionError(f"StreamPool vs engine.stream: only {min(agree):.4f} of a "
+                             f"window's code bits agree (limit {POOL_BITS_AGREE})")
+    if max(faults.values()) >= POOL_BITS_AGREE:
+        raise AssertionError(f"the pool's bits check lets a planted fault pass: {faults}")
+    want = {"ar": 4 * len(engine.model.patch_nums), "encoder": 4}
+    if launches != want:
+        raise AssertionError(f"StreamPool launches {launches}, want {want}")
+    return {"ms_tick": ms_tick, "launches": launches, "stream_err": stream_err,
+            "agree": min(agree)}
+
+
+def level_bound(model, pack: dict, level: int, cache_bytes: int):
+    """(bytes ms, operations ms) of one AR level at B = 1: each input read
+    once (weights, scales, biases, tokens, AdaLN rows, the cache prefix),
+    each output written once; 2 FLOP per weight per token plus attention."""
+    depth, d, pn = model.depth, model.embed_dim, model.patch_nums[level]
+    start = model.prev_len + model.offsets[level]
+    weights = sum(pack[n].numel() for n in ("wqkv", "wproj", "wfc1", "wfc2"))
+    moved = sum(t.numel() * t.element_size() for t in pack.values())
+    moved += pn * d * 4 + depth * pn * 6 * d * 4 + 2 * depth * start * d * cache_bytes
+    moved += pn * d * 4 + 2 * depth * pn * d * cache_bytes
+    flop = 2 * weights * pn + depth * 2 * 2 * pn * (start + pn) * d
+    rate = FP32_FLOP_PER_S if pack["wqkv"].dtype == torch.float32 else BF16_FLOP_PER_S
+    return moved / HBM_BYTES_PER_S * 1e3, flop / rate * 1e3
+
+
+def library_encoder(model, dtype: torch.dtype) -> torch.nn.Module:
+    """torch.nn.TransformerEncoder holding the port's encoder layers: the
+    library yardstick of the encoder stack (timed here, used nowhere in the
+    port)."""
+    cfg = model.cfg.wav2vec
+    lay = model.audio_encoder.encoder.layers
+    layer = torch.nn.TransformerEncoderLayer(
+        cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size, dropout=0.0,
+        activation="gelu", norm_first=True, batch_first=True, layer_norm_eps=cfg.layer_norm_eps)
+    enc = torch.nn.TransformerEncoder(layer, cfg.num_hidden_layers, enable_nested_tensor=False)
+    with torch.no_grad():
+        for i, m in enumerate(enc.layers):
+            m.self_attn.in_proj_weight.copy_(torch.cat([lay.q.w[i], lay.k.w[i], lay.v.w[i]], 1).T)
+            m.self_attn.in_proj_bias.copy_(torch.cat([lay.q.b[i], lay.k.b[i], lay.v.b[i]]))
+            m.self_attn.out_proj.weight.copy_(lay.out.w[i].T)
+            m.self_attn.out_proj.bias.copy_(lay.out.b[i])
+            m.linear1.weight.copy_(lay.fc1.w[i].T)
+            m.linear1.bias.copy_(lay.fc1.b[i])
+            m.linear2.weight.copy_(lay.fc2.w[i].T)
+            m.linear2.bias.copy_(lay.fc2.b[i])
+            for norm, src in ((m.norm1, lay.norm1), (m.norm2, lay.norm2)):
+                norm.weight.copy_(src.scale[i])
+                norm.bias.copy_(src.bias[i])
+    return enc.to(model.pos_embed.device, dtype).eval().requires_grad_(False)
+
+
+def phase_times(model, ar_packs: dict, enc_packs: dict) -> dict:
+    """CUDA-event times of both block stacks and their yardsticks at the main
+    path's shapes (B = 1), with their bounds."""
+    out = {}
+    for name, pack in ar_packs.items():
+        cache_dtype = torch.float32 if name == "f32" else torch.bfloat16
+        cb = 4 if name == "f32" else 2
+        ms = plain = bound = 0.0
+        worst = (0.0, "bytes")
+        for level, pn in enumerate(model.patch_nums):
+            x, ada, kc, vc, start = ar_inputs(model, 1, level, cache_dtype, seed=300 + level)
+            args = dict(start=start, num_heads=model.num_heads)
+            k = cuda_ms(lambda: ar_stack.ar_block_stack(x, ada, pack, kc, vc, **args), 20)
+            p = cuda_ms(lambda: ar_stack.ar_block_stack_plain(x, ada, pack, kc, vc, **args), 3)
+            b_ms, o_ms = level_bound(model, pack, level, cb)
+            print(f"[times] ar {name} level {level} (pn {pn}): kernel {k:.4f} ms, plain "
+                  f"{p:.4f} ms, bound {max(b_ms, o_ms):.4f} ms "
+                  f"({'bytes' if b_ms >= o_ms else 'operations'})")
+            ms, plain, bound = ms + k, plain + p, bound + max(b_ms, o_ms)
+            worst = max(worst, (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"))
+        print(f"[times] ar {name} per window: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound:.4f} ms, share of the bound {bound / ms:.3f}")
+        out[f"ar/{name}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": worst[1], "library_ms": None}
+
+    heads = model.cfg.wav2vec.num_attention_heads
+    x = encoder_input(model)
+    lib_ms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lib = library_encoder(model, dtype)
+        xl = x.to(dtype)
+        with torch.no_grad():
+            ref = enc_stack.encoder_block_stack_plain(x, enc_packs["f32"], num_heads=heads)
+            diff = (lib(xl).float() - ref).abs().max().item()
+            lib_ms[dtype] = cuda_ms(lambda: lib(xl), 10)
+        print(f"[times] library TransformerEncoder {dtype}: {lib_ms[dtype]:.4f} ms "
+              f"(max abs diff from the float32 plain stack {diff:.3g})")
+        del lib
+    weights = sum(enc_packs["f32"][n].numel() for n in ("wqkv", "wout", "wfc1", "wfc2"))
+    cfg = model.cfg.wav2vec
+    t = x.shape[1]
+    flop = 2 * weights * t + cfg.num_hidden_layers * 2 * 2 * t * t * cfg.hidden_size
+    for name, pack in enc_packs.items():
+        moved = sum(v.numel() * v.element_size() for v in pack.values()) + 2 * x.numel() * 4
+        rate = FP32_FLOP_PER_S if name == "f32" else BF16_FLOP_PER_S
+        b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, flop / rate * 1e3
+        k = cuda_ms(lambda: enc_stack.encoder_block_stack(x, pack, num_heads=heads), 10)
+        p = cuda_ms(lambda: enc_stack.encoder_block_stack_plain(x, pack, num_heads=heads), 3)
+        lib = lib_ms[torch.float32 if name == "f32" else torch.bfloat16]
+        bound = max(b_ms, o_ms)
+        print(f"[times] encoder {name} per window: kernel {k:.4f} ms, plain {p:.4f} ms, "
+              f"library {lib:.4f} ms, bound {bound:.4f} ms ({b_ms:.4f} bytes, {o_ms:.4f} "
+              f"operations; {flop / 1e9:.1f} GFLOP), share of the bound {bound / k:.3f}")
+        out[f"encoder/{name}"] = {"ms": k, "plain_ms": p, "bound_ms": bound,
+                                  "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                                  "library_ms": lib}
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 1
-    phase_device()
+    t_start = time.perf_counter()
+    smi = phase_device()
     phase_build()
     flame_data = load_or_synthesize_flame(os.path.join(ROOT, "assets"))
     dev = torch.device("cuda")
     kernel = phase_kernel(flame_data, dev)
     phase_golden(dev)
-    launches = phase_full(dev)
-    print(json.dumps({"kernels": [{
-        "name": "rasterize", "route": "cuda",
-        "source": "artalk_tpu_torch/csrc/rasterizer.cu",
-        "replaces": "artalk_tpu/ops/rasterizer.py:196",
-        "launches": launches, **kernel}]}))
+    raster_launches, exact_bits, exact_ms = phase_full(dev)
+    torch.cuda.empty_cache()
+
+    modes, engine = {"exact": {"ms_window": exact_ms}}, None
+    for mode in MODES:
+        engine = None
+        torch.cuda.empty_cache()
+        engine, modes[mode] = phase_mode(mode, dev, exact_bits)
+    pool = phase_pool(engine)           # the int8 engine, the last mode
+    model = engine.model
+    ar_packs = {"f32": ar_stack.pack_block_weights(model.blocks, model.num_heads),
+                "bf16": ar_stack.pack_block_weights(model.blocks, model.num_heads,
+                                                    torch.bfloat16),
+                "int8": model.fused_pack}
+    enc_packs = {"f32": model.audio_encoder.pack_fused(torch.float32),
+                 "bf16": model.audio_encoder.pack_fused(torch.bfloat16),
+                 "int8": model.fused_audio_pack}
+    ar_err = phase_ar_kernel(model, ar_packs)
+    enc_err = phase_encoder_kernel(model, enc_packs)
+    times = phase_times(model, ar_packs, enc_packs)
+
+    print(f"[summary] {smi}: inference ms/window by mode "
+          + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())
+          + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    kernels = [{"name": "rasterize", "route": "cuda",
+                "source": "artalk_tpu_torch/csrc/rasterizer.cu",
+                "replaces": "artalk_tpu/ops/rasterizer.py:196",
+                "launches": raster_launches, **kernel}]
+    for mode, pack in PACK_OF_MODE.items():
+        name = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}[pack]
+        kernels.append({"name": f"ar_block_stack/{name}", "route": "cuda",
+                        "source": "artalk_tpu_torch/csrc/ar_block_stack.cu",
+                        "replaces": "artalk_tpu/ops/ar_block_stack.py:350",
+                        "launches": modes[mode]["launches"]["ar"],
+                        "max_abs_err": ar_err[name], **times[f"ar/{name}"]})
+        kernels.append({"name": f"encoder_block_stack/{name}", "route": "cuda",
+                        "source": "artalk_tpu_torch/csrc/encoder_block_stack.cu",
+                        "replaces": "artalk_tpu/ops/encoder_block_stack.py:339",
+                        "launches": modes[mode]["launches"]["encoder"],
+                        "max_abs_err": enc_err[name], **times[f"encoder/{name}"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

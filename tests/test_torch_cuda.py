@@ -1,4 +1,5 @@
-"""The CUDA rasterizer kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: the
+rasterizer, the AR block stack and the encoder block stack.
 
 Marked ``cuda``: skipped without an NVIDIA GPU. This file imports neither jax
 nor artalk_tpu, so it also runs on a GPU machine without them; there, skip
@@ -6,15 +7,28 @@ tests/conftest.py (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The kernel evaluates the planes in the plain version's order without FMA
-contraction, so face ids and depths must be bit-identical.
+The rasterizer evaluates the planes in the plain version's order without FMA
+contraction, so face ids and depths must be bit-identical. The block stacks
+sum in another order than cuBLAS: float32 packs are held to 1e-4 (features)
+and 1e-5 (keys and values), bf16 and int8 packs to 5e-2 (the AR stack) and to
+tests/test_encoder_fused.py's 0.08 and 0.15 (the encoder stack); a batch row
+must equal the same row run alone exactly.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from artalk_tpu_torch.models import nn as tnn
+from artalk_tpu_torch.models.ar_model import _Blocks
+from artalk_tpu_torch.models.wav2vec import _Layers
+from artalk_tpu_torch.ops import ar_block_stack as tab
+from artalk_tpu_torch.ops import encoder_block_stack as teb
 from artalk_tpu_torch.ops import rasterizer as tr
+
+PACK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
 
 def _scenes():
@@ -41,7 +55,96 @@ def _scenes():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full float32
     return torch.device("cuda")
+
+
+def _blocks(depth=2, d=256, hidden=1024, heads=4, seed=0):
+    """Mid-size AdaLN blocks with random weights and per-head scales."""
+    gen = torch.Generator().manual_seed(seed)
+    blocks = _Blocks(depth, d, 32, hidden, heads).requires_grad_(False)
+    for lin in (blocks.ada_lin, blocks.q, blocks.k, blocks.v, blocks.proj, blocks.fc1,
+                blocks.fc2):
+        tnn.linear_init(lin, gen)
+    blocks.scale_mul.copy_(math.log(4.0) + torch.rand(blocks.scale_mul.shape, generator=gen))
+    return blocks
+
+
+def _ar_inputs(b, pn, start, depth=2, d=256, cache_len=96, cache_dtype=torch.float32, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, pn, d), generator=g) * 0.3
+    ada = torch.randn((depth, b, pn, 6 * d), generator=g) * 0.1
+    kc = tnn.l2_normalize(torch.randn((depth, b, cache_len, d), generator=g).reshape(
+        depth, b, cache_len, 4, d // 4)).reshape(depth, b, cache_len, d).to(cache_dtype)
+    vc = (torch.randn((depth, b, cache_len, d), generator=g) * 0.2).to(cache_dtype)
+    return x, ada, kc, vc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_ar_block_stack_matches_plain(cuda, mode):
+    pack = tab.pack_block_weights(_blocks().to(cuda), 4, dtype=PACK_DTYPES[mode])
+    cache_dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    for pn, start in ((1, 40), (5, 41), (25, 46), (50, 46)):
+        args = [t.to(cuda) for t in _ar_inputs(3, pn, start, cache_dtype=cache_dtype)]
+        before = tab.LAUNCHES
+        got = tab.ar_block_stack(args[0], args[1], pack, args[2], args[3], start=start,
+                                 num_heads=4)
+        assert tab.LAUNCHES == before + 1
+        want = tab.ar_block_stack_plain(args[0], args[1], pack, args[2], args[3], start=start,
+                                        num_heads=4)
+        torch.cuda.synchronize()
+        assert got[1].dtype == got[2].dtype == cache_dtype
+        feats_tol, kv_tol = (1e-4, 1e-5) if mode == "f32" else (5e-2, 5e-2)
+        torch.testing.assert_close(got[0], want[0], atol=feats_tol, rtol=feats_tol)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g.float(), w.float(), atol=kv_tol, rtol=kv_tol)
+        row = tab.ar_block_stack(args[0][1:2], args[1][:, 1:2].contiguous(), pack,
+                                 args[2][:, 1:2].contiguous(), args[3][:, 1:2].contiguous(),
+                                 start=start, num_heads=4)
+        for g, r in zip((got[0][1:2], got[1][:, 1:2], got[2][:, 1:2]), row):
+            assert torch.equal(g, r), (mode, pn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tol", [("f32", 1e-4), ("bf16", 0.08), ("int8", 0.15)])
+def test_encoder_block_stack_matches_plain(cuda, mode, tol):
+    gen = torch.Generator().manual_seed(2)
+    layers = _Layers(256, 1024, 2, 1e-5).requires_grad_(False)
+    for lin in (layers.q, layers.k, layers.v, layers.out, layers.fc1, layers.fc2):
+        tnn.linear_init(lin, gen)
+    for norm in (layers.norm1, layers.norm2):
+        norm.scale.copy_(1.0 + 0.1 * torch.randn(norm.scale.shape, generator=gen))
+        norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=gen))
+    pack = teb.pack_encoder_weights(layers.to(cuda), dtype=PACK_DTYPES[mode])
+    x = (torch.randn((2, 199, 256), generator=gen) * 0.5).to(cuda)
+    before = teb.LAUNCHES
+    got = teb.encoder_block_stack(x, pack, num_heads=4)
+    assert teb.LAUNCHES == before + 1
+    want = teb.encoder_block_stack_plain(x, pack, num_heads=4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(got[1:], teb.encoder_block_stack(x[1:], pack, num_heads=4))
+
+
+@pytest.mark.cuda
+def test_block_stacks_reject_bad_inputs(cuda):
+    pack = tab.pack_block_weights(_blocks().to(cuda), 4)
+    x, ada, kc, vc = (t.to(cuda) for t in _ar_inputs(1, 5, 41))
+    with pytest.raises(ValueError, match="caches"):
+        tab.ar_block_stack(x, ada, pack, kc.half(), vc.half(), start=41, num_heads=4)
+    with pytest.raises(ValueError, match="exceed"):
+        tab.ar_block_stack(x, ada, pack, kc, vc, start=94, num_heads=4)
+    with pytest.raises(ValueError, match="head dim"):
+        tab.ar_block_stack(x, ada, pack, kc, vc, start=41, num_heads=5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tab.ar_block_stack(x, ada, {**pack, "wqkv": pack["wqkv"].cpu()}, kc, vc, start=41,
+                           num_heads=4)
+    with pytest.raises(ValueError, match="scales"):
+        tab.ar_block_stack(x, ada, {**pack, "wqkv": pack["wqkv"].to(torch.int8)}, kc, vc,
+                           start=41, num_heads=4)
+    with pytest.raises(ValueError, match=r"\(B, T, d\)"):
+        teb.encoder_block_stack(x[0], {}, num_heads=4)
 
 
 @pytest.mark.cuda

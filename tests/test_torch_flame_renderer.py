@@ -57,7 +57,8 @@ def test_mesh_frames_match_jax(rng, flame_data):
     size = 128
     jren = JaxRenderer(size, flame_data["faces"], template_verts=flame_data["v_template"],
                        interpret=True)
-    tren = MeshRenderer(size, flame_data["faces"], template_verts=flame_data["v_template"])
+    tren = MeshRenderer(size, flame_data["faces"], template_verts=flame_data["v_template"],
+                        device="cpu")
     # the Morton face order is reproduced exactly: face ids and ties depend on it
     np.testing.assert_array_equal(tren.faces.numpy(), np.asarray(jren.faces))
     verts = np.array(JaxFlame(flame_data).motion_to_verts(

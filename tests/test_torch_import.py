@@ -1,5 +1,6 @@
-"""artalk_tpu_torch stays free of jax, and the parts it does not port yet
-raise instead of being ignored."""
+"""artalk_tpu_torch stays free of jax, the precision switches resolve as in
+the JAX engine, and the parts it does not port yet raise instead of being
+ignored."""
 
 import os
 import subprocess
@@ -44,17 +45,24 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     assert tengine.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("env,err", [
-    ({"ARTALK_AR_PRECISION": "fast"}, NotImplementedError),
-    ({"ARTALK_AR_PRECISION": "int8"}, NotImplementedError),
-    ({"ARTALK_AR_FUSED": "1"}, NotImplementedError),
-    ({"ARTALK_AR_PRECISION": "bogus"}, ValueError),
+def test_engine_precision_switches_raise(monkeypatch, tmp_path):
+    monkeypatch.setenv("ARTALK_AR_PRECISION", "bogus")
+    with pytest.raises(ValueError, match="exact"):
+        tengine.ARTAvatarInferEngine(device="cpu", assets_dir=str(tmp_path))
+
+
+@pytest.mark.parametrize("env,want", [
+    ({"ARTALK_AR_PRECISION": "fast"}, (True, True, False, False)),
+    ({"ARTALK_AR_PRECISION": "int8"}, (True, True, True, True)),
+    ({"ARTALK_AR_FUSED": "1"}, (False, False, True, False)),
 ])
-def test_engine_precision_switches_raise(monkeypatch, tmp_path, env, err):
+def test_engine_precision_switches_resolve(monkeypatch, env, want):
+    """The switches set (bf16_audio, bf16_ar, fused_ar, int8_ar) as the JAX
+    engine's _resolve_ar_precision does."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(err, match="ROADMAP.md" if err is NotImplementedError else "exact"):
-        tengine.ARTAvatarInferEngine(device="cpu", assets_dir=str(tmp_path))
+    cfg = tengine._resolve_ar_precision(tcfg.ModelConfig())
+    assert (cfg.bf16_audio, cfg.bf16_ar, cfg.fused_ar, cfg.int8_ar) == want
 
 
 @pytest.mark.parametrize("kwargs", [
