@@ -1,4 +1,4 @@
-"""ARTalk on PyTorch and CUDA: the speech -> mesh-video path for NVIDIA Hopper.
+"""ARTalk on PyTorch and CUDA: speech -> mesh or gaussian-avatar video on NVIDIA Hopper.
 
 A port of ``artalk_tpu`` (JAX/Pallas for the TPU), which stays beside it as
 the reference. Module paths and public names mirror ``artalk_tpu`` so each
@@ -13,11 +13,16 @@ compile cache). Numpy-only helpers are copied rather than imported.
 
 Ported so far: the mesh path of ``python -m artalk_tpu_torch.cli -a <wav>`` in
 every precision mode (exact, ``ARTALK_AR_FUSED=1``, ``ARTALK_AR_PRECISION=fast``
-and ``int8``) and ``serving.StreamPool``. Three hand-written CUDA kernels carry
-it: the z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block stack
-(``csrc/ar_block_stack.cu``) and the wav2vec2 encoder stack
-(``csrc/encoder_block_stack.cu``); everything else on the path is plain
-PyTorch. ``ROADMAP.md`` lists what is still to be ported.
+and ``int8``), ``serving.StreamPool``, and the GAGAvatar path of
+``python -m artalk_tpu_torch.cli -a <wav> --load_gaga -i synthetic_0``
+(``models/gagavatar``; ``ARTALK_GAGA_PRECISION=fast|exact``). Four
+hand-written CUDA kernels carry them: the z-buffer rasterizer
+(``csrc/rasterizer.cu``), the AR block stack (``csrc/ar_block_stack.cu``), the
+wav2vec2 encoder stack (``csrc/encoder_block_stack.cu``) and the 32-channel
+gaussian splat (``csrc/gsplat.cu``); everything else on the paths is plain
+PyTorch. On the CPU every kernel takes its plain version, which the tests
+(``python -m pytest tests/test_torch_*.py``) hold against the JAX package.
+``ROADMAP.md`` lists what is still to be ported.
 """
 
 __version__ = "0.1.0"

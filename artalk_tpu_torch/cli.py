@@ -1,13 +1,14 @@
-"""CLI entry point, the mesh path of ``artalk_tpu/cli.py``'s flags.
+"""CLI entry point, ``artalk_tpu/cli.py``'s flags.
 
     python -m artalk_tpu_torch.cli -a demo/eng1.wav [-l 750] [-s style_id]
-                                   [--assets assets]
+                                   [--load_gaga -i synthetic_0] [--assets assets]
 
 It runs on the CUDA device. The precision switches are environment variables,
-as in the JAX CLI, read by the engine: ``ARTALK_AR_PRECISION=exact|fast|int8``
-and ``ARTALK_AR_FUSED=1``.
+as in the JAX CLI, read by the engine: ``ARTALK_AR_PRECISION=exact|fast|int8``,
+``ARTALK_AR_FUSED=1`` and, for the GAGAvatar renderer,
+``ARTALK_GAGA_PRECISION=fast|exact``.
 
-``--load_gaga`` and ``--run_app`` are not ported yet and raise.
+``--run_app`` (the web UI) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -34,32 +35,39 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def resolve_shape_id(engine, shape_id: str, load_gaga: bool) -> str:
+    """As the reference CLI (inference.py:225-227): a shape_id that is not in
+    the avatar bank (or no GAGA renderer loaded at all) renders 'mesh'."""
+    if shape_id == "mesh":
+        return "mesh"
+    bank = engine.gagavatar.all_gagavatar_id if load_gaga else {}
+    if shape_id not in bank:
+        print(f"[artalk_tpu_torch] shape_id {shape_id!r} not in the avatar bank"
+              f"{'' if load_gaga else ' (--load_gaga not set)'}; rendering 'mesh' instead")
+        return "mesh"
+    return shape_id
+
+
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
-    if args.load_gaga:
-        raise NotImplementedError(
-            "--load_gaga: the GAGAvatar renderer is not ported yet (ROADMAP.md Queue 1 item 10)")
     if args.run_app:
         raise NotImplementedError(
             "--run_app: the web UI is not ported yet (ROADMAP.md Queue 1 item 13)")
     if not args.audio_path:
         raise SystemExit("--audio_path / -a required")
     engine = ARTAvatarInferEngine(
-        fix_pose=args.fix_pose, clip_length=args.clip_length, assets_dir=args.assets,
-        image_size=args.image_size)
+        load_gaga=args.load_gaga, fix_pose=args.fix_pose, clip_length=args.clip_length,
+        assets_dir=args.assets, image_size=args.image_size)
     audio = load_audio_16k_mono(args.audio_path)
     base = os.path.splitext(os.path.basename(args.audio_path))[0]
     save_name = f"{base}_{args.style_id.replace('.', '_')}_{args.shape_id.replace('.', '_')}"
-    if args.shape_id != "mesh":
-        # as the reference CLI: an id outside the (absent) avatar bank renders the mesh
-        print(f"[artalk_tpu_torch] shape_id {args.shape_id!r} not in the avatar bank "
-              "(--load_gaga not set); rendering 'mesh' instead")
+    shape_id = resolve_shape_id(engine, args.shape_id, args.load_gaga)
     if args.style_id != "default":
         engine.set_style_motion(args.style_id)
     print("Inferring motion...")
     motions = engine.inference(audio)
     print("Rendering...")
-    out = engine.rendering(audio, motions, shape_id="mesh", save_name=save_name)
+    out = engine.rendering(audio, motions, shape_id=shape_id, save_name=save_name)
     print(f"Saved {out}")
     return out
 

@@ -1,11 +1,12 @@
 """ARTAvatarInferEngine: the top-level speech -> talking-head pipeline.
 
-Counterpart of ``artalk_tpu/engine.py`` on its mesh path: ``inference``
-(audio -> smoothed 106-d motion), ``stream`` (window by window with a
-resumable carry), ``set_style_motion``, and ``rendering`` with the mesh
-renderer. Everything runs on one ``device``: "cuda" by default, where the
-rasterizer and the block stacks are CUDA kernels; "cpu" runs the plain
-versions and must be asked for explicitly.
+Counterpart of ``artalk_tpu/engine.py``: ``inference`` (audio -> smoothed
+106-d motion), ``stream`` (window by window with a resumable carry),
+``set_style_motion``, and ``rendering`` with the mesh renderer
+(``shape_id="mesh"``) or, with ``load_gaga=True``, the GAGAvatar renderer
+(``shape_id=<avatar id>``). Everything runs on one ``device``: "cuda" by
+default, where the rasterizer, the splat and the block stacks are CUDA
+kernels; "cpu" runs the plain versions and must be asked for explicitly.
 
 The JAX engine's precision switches are read from the environment at
 construction, as there: ``ARTALK_AR_PRECISION`` = ``exact`` (default) /
@@ -32,14 +33,15 @@ import torch
 from .config import ModelConfig, load_config
 from .models.ar_model import BitwiseARModel, WindowState
 from .models.flame import FlameModel
+from .models.gagavatar import GAGAvatar
+from .models.nn import full_float32
 from .models.renderer import MeshRenderer
 from .ops.savgol import smooth_motion_savgol
 from .utils.assets import load_or_synthesize_flame
 from .utils.params import load_params_npz, params_from_flat
 from .utils.video import write_video
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+full_float32()
 
 
 def _resolve_ar_precision(config: ModelConfig) -> ModelConfig:
@@ -88,10 +90,10 @@ class ARTAvatarInferEngine:
         """``params`` is a flat ``//``-keyed JAX parameter dict (see
         ``utils/params.py``); without it the engine loads
         ``<assets_dir>/artalk_params.npz`` when present, else initializes
-        random weights from ``torch.Generator().manual_seed(seed)``."""
-        if load_gaga:
-            raise NotImplementedError(
-                "the GAGAvatar renderer is not ported yet (ROADMAP.md Queue 1 item 10)")
+        random weights from ``torch.Generator().manual_seed(seed)``. With
+        ``load_gaga`` it also builds the GAGAvatar renderer
+        (``models/gagavatar``; its own weights from
+        ``<assets_dir>/gagavatar_params.npz`` or random)."""
         self.device = resolve_device(device)
         self.fix_pose = fix_pose
         self.clip_length = clip_length
@@ -121,6 +123,11 @@ class ARTAvatarInferEngine:
         self.mesh_renderer = MeshRenderer(
             image_size=image_size, faces=flame_data["faces"], scale=1.0,
             template_verts=flame_data["v_template"], device=self.device)
+
+        if load_gaga:
+            self.gagavatar = GAGAvatar(assets_dir=assets_dir, device=self.device)
+            self.gagavatar_flame = FlameModel(flame_data, n_shape=300, n_exp=100,
+                                              scale=5.0).to(self.device)
 
         self.output_dir = output_dir or "render_results/ARTAvatar_tpu_torch"
         os.makedirs(self.output_dir, exist_ok=True)
@@ -206,19 +213,25 @@ class ARTAvatarInferEngine:
     def rendering(self, audio: np.ndarray, pred_motions: np.ndarray,
                   shape_id: str = "mesh", shape_code: Optional[np.ndarray] = None,
                   save_name: str = "ARTAvatar") -> str:
-        """Motions -> rendered mesh video with muxed audio; returns the path."""
-        if shape_id != "mesh":
-            raise NotImplementedError(
-                f"shape_id={shape_id!r} needs the GAGAvatar renderer, which is not "
-                "ported yet (ROADMAP.md Queue 1 item 10); use shape_id='mesh'")
+        """Motions -> rendered video with muxed audio; returns the path.
+        ``shape_id="mesh"`` renders the FLAME mesh, an avatar id the GAGAvatar
+        (which needs ``load_gaga=True``)."""
         motions = torch.from_numpy(np.asarray(pred_motions, np.float32)).to(self.device)
         t = motions.shape[0]
-        if shape_code is None:
-            shape = motions.new_zeros((t, 300))
+        if shape_id == "mesh":
+            if shape_code is None:
+                shape = motions.new_zeros((t, 300))
+            else:
+                code = torch.from_numpy(np.asarray(shape_code, np.float32).reshape(1, -1))
+                shape = code.to(self.device).expand(t, -1)
+            frames = self.mesh_renderer.render_frames(self.flame.motion_to_verts(shape, motions))
         else:
-            code = torch.from_numpy(np.asarray(shape_code, np.float32).reshape(1, -1))
-            shape = code.to(self.device).expand(t, -1)
-        frames = self.mesh_renderer.render_frames(self.flame.motion_to_verts(shape, motions))
+            if not hasattr(self, "gagavatar"):
+                raise RuntimeError(
+                    f"shape_id={shape_id!r} requires the GAGAvatar renderer; construct "
+                    "ARTAvatarInferEngine(load_gaga=True) or use shape_id='mesh'")
+            frames = self.gagavatar.render_motion_sequence(
+                shape_id, motions, self.gagavatar_flame, colorspace="yuv420")
         audio = np.asarray(audio, np.float32).reshape(-1)
         audio = audio[: int(t / self.cfg.fps * self.cfg.sample_rate)]
         out_path = os.path.join(self.output_dir, f"{save_name}.mp4")

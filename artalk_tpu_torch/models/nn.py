@@ -1,4 +1,4 @@
-"""NN primitives: linear, LayerNorm, GELUs, attention, initializers.
+"""NN primitives: linear, conv, LayerNorm, GELUs, attention, initializers.
 
 Counterpart of ``artalk_tpu/models/nn.py``. Parameters keep the JAX layouts so
 that the parameter bridge (``utils/params.py``) is a rename and nothing more:
@@ -92,6 +92,46 @@ def linear_init(lin: Linear, gen: torch.Generator, w_init=None) -> Linear:
     return lin
 
 
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with the torch weight layout (out, in/groups, kh, kw).
+
+    On the CPU a bfloat16 convolution runs in float32 on the bf16 values and
+    is rounded once, then the bias is added in bf16, as XLA computes it:
+    PyTorch's CPU bf16 (grouped) convolution loses most of its precision. On
+    the card cuDNN computes bf16 as it is."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        y = F.conv2d(x.float(), w.float(), None, stride, padding, 1, groups).to(x.dtype)
+        return y if b is None else y + b[:, None, None]
+    return F.conv2d(x, w, b, stride, padding, 1, groups)
+
+
+class Conv2d(nn.Module):
+    """2-D conv parameters as the JAX tree holds them: ``w`` in the torch
+    layout (out, in, k, k) and an optional bias ``b``; torch default init."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, bias: bool = True):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
+        if bias:
+            self.b = nn.Parameter(torch.zeros(out_ch))
+        else:
+            self.register_parameter("b", None)
+
+    def init(self, gen: torch.Generator) -> "Conv2d":
+        """kaiming_uniform weight (fan_in = in * k * k), zero bias."""
+        _, cin, kh, kw = self.w.shape
+        kaiming_uniform(self.w.data, cin * kh * kw, gen)
+        if self.b is not None:
+            self.b.data.zero_()
+        return self
+
+    def forward(self, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
+        """The conv in the input's dtype (parameters are cast to it)."""
+        b = None if self.b is None else self.b.to(x.dtype)
+        return conv2d(x, self.w.to(x.dtype), b, stride, padding)
+
+
 def layer_norm(x: torch.Tensor, eps: float = 1e-5,
                scale: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -183,6 +223,13 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 # ---------------------------------------------------------------------------
 # Misc
 # ---------------------------------------------------------------------------
+
+
+def full_float32() -> None:
+    """Turn TF32 off for CUDA matmuls and cuDNN convolutions: the exact paths
+    (greedy code bits, the GAGAvatar ``exact`` mode) need full float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:

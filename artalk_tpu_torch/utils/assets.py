@@ -1,4 +1,4 @@
-"""FLAME asset loading and synthetic generation (numpy only).
+"""FLAME and avatar-bank assets: loading and synthetic generation (numpy only).
 
 Copied from ``artalk_tpu/utils/assets.py`` (which cannot be imported without
 jax). The real FLAME data is license-gated; without a converted
@@ -6,7 +6,9 @@ jax). The real FLAME data is license-gated; without a converted
 (same shapes, same kinematic tree, procedural head geometry), generated once
 from a fixed seed and cached as ``assets/flame_synthetic.npz``. The cache is
 not committed, so a fresh checkout synthesizes it at first use; the generator
-matches the JAX package's, so both packages render the same head.
+matches the JAX package's, so both packages render the same head. The
+GAGAvatar bank (``assets/avatars/synthetic_{0,1}.npz``) is synthesized the
+same way when absent.
 """
 
 from __future__ import annotations
@@ -124,3 +126,32 @@ def load_or_synthesize_flame(assets_dir: str) -> Dict[str, np.ndarray]:
         os.makedirs(assets_dir, exist_ok=True)
         save_flame_npz(synthetic_flame(), synth)
     return load_flame_npz(synth)
+
+
+def synthetic_avatar(seed: int = 0, size: int = 512) -> Dict[str, np.ndarray]:
+    """Synthetic tracked-avatar entry (image + camera + shape code), matching
+    the schema of the reference's tracked.pt entries (GAGAvatar/models.py:50-54)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    base = np.stack([
+        0.5 + 0.3 * np.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.05),
+        0.4 + 0.25 * np.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.05),
+        0.35 + 0.2 * np.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.05),
+    ])
+    noise = rng.normal(0, 0.02, base.shape).astype(np.float32)
+    image = np.clip(base + noise, 0, 1).astype(np.float32)
+    transform = np.array(
+        [[-1, 0, 0, 0], [0, 1, 0, 0], [0, 0, -1, 5000.0 / 512]], np.float32)
+    shapecode = (rng.standard_normal(300) * 0.3).astype(np.float32)
+    return {"image": image, "transform_matrix": transform, "shapecode": shapecode}
+
+
+def ensure_synthetic_avatars(assets_dir: str, count: int = 2) -> None:
+    """Create a synthetic avatar bank under assets/avatars/ if none exists."""
+    bank = os.path.join(assets_dir, "avatars")
+    if os.path.isdir(bank) and any(f.endswith(".npz") for f in os.listdir(bank)):
+        return
+    os.makedirs(bank, exist_ok=True)
+    for i in range(count):
+        np.savez_compressed(os.path.join(bank, f"synthetic_{i}.npz"),
+                            **synthetic_avatar(seed=i))

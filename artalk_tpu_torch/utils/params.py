@@ -36,6 +36,16 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig) -> BitwiseAR
     return load_flat_into(BitwiseARModel(cfg), flat)
 
 
+def gagavatar_from_flat(flat: Dict[str, np.ndarray]) -> torch.nn.Module:
+    """The port's GAGAvatar networks (``GAGAvatarNets``, on the CPU) holding
+    the parameters of a JAX ``GAGAvatar.init`` tree, checked as
+    ``params_from_flat`` checks them."""
+    # imported here: models/gagavatar/avatar.py imports this module
+    from ..models.gagavatar.avatar import GAGAvatarNets
+
+    return load_flat_into(GAGAvatarNets(), flat)
+
+
 def load_flat_into(model: torch.nn.Module, flat: Dict[str, np.ndarray]) -> torch.nn.Module:
     """Load flat ``//``-keyed JAX parameters into any of the port's modules
     (e.g. a ``BitwiseVAE`` with the JAX ``BitwiseVAE.init`` tree), checking

@@ -2,13 +2,13 @@
 """GPU smoke run of artalk_tpu_torch: builds the CUDA kernels, checks each
 against its plain version, replays the seed-0 goldens, and drives the
 speech -> mesh-video path at the production width in every precision mode,
-and StreamPool.
+StreamPool, and the speech -> gaussian-splat avatar (GAGAvatar) path.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
 Phases (any failure raises and exits non-zero; no phase catches its own):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the three kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
+  2. build the four kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
      once) and print the seconds and nvcc's register / shared-memory report;
   3. kernel vs plain version on the synthetic FLAME head at 512x512, 4 frames:
      face ids agree on >= 99.9 % of pixels, background exactly, zbuf to
@@ -51,7 +51,28 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      bf16), and each kernel's bound (the larger of bytes over 3.35 TB/s and
      operations over 67 TFLOP/s fp32 or 989 TFLOP/s bf16); the rasterizer's
      bound is computed in phase 3 (each face tested against the pixels of
-     its own bounding box).
+     its own bounding box);
+ 11. the GAGAvatar path at full width, per ARTALK_GAGA_PRECISION (fast: bf16 SR
+     and bf16 splat colors; exact: float32): ARTAvatarInferEngine(load_gaga=True)
+     with the production networks (DINOv2 ViT-B/14 + DPT, StyleUNet 512) on
+     random seed-0 weights, inference of phase 5's audio, then
+     rendering(shape_id="synthetic_0") -> 250 frames with the splat kernel
+     launched at least 250 times; phase 5's motions rendered in one call equal
+     the same rendered in two halves (the forehead EMA resumed) exactly; fast
+     agrees with exact within GAGA_FAST_LSB;
+ 12. splat kernel vs splat_tiles_plain on two full-width scenes (bench.py's
+     180,255-gaussian scene, seed 3, and the synthetic_0 avatar's gaussians at
+     the neutral pose), with float32 and bf16 colors: max abs error within
+     SPLAT_TOL of the scene's largest |color| and all but SPLAT_FAR_SHARE of
+     the values within SPLAT_NEAR of it, and faults planted in the
+     plain version (each tile's order reversed; the 1/255 alpha cut dropped;
+     the MAX_RX / MAX_RY emission clamp dropped, where it changes the lists)
+     must break that limit;
+ 13. GAGAvatar times by CUDA events on the avatar scene, per precision: the
+     splat kernel, its plain version, the prepass, the SR and the whole frame,
+     and the kernel's bound (the larger of bytes over 3.35 TB/s and the
+     alpha evaluations and composites the pixels need before they stop over
+     67 TFLOP/s fp32).
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -73,9 +94,12 @@ import torch
 from artalk_tpu_torch import config as tcfg
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
 from artalk_tpu_torch.models.flame import FlameModel
+from artalk_tpu_torch.models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS
+from artalk_tpu_torch.models.gagavatar.generators import transform_emoca_to_p3d
 from artalk_tpu_torch.models.renderer import MeshRenderer
 from artalk_tpu_torch.ops import ar_block_stack as ar_stack
 from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
+from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
@@ -113,6 +137,27 @@ ONE_BLOCK = {"ar/bf16": {"rms": 6e-4, "changed": 0.01},
 # least share of a window's code bits on which a StreamPool session agrees
 # with the same audio streamed alone at batch 1
 POOL_BITS_AGREE = 0.97
+# GAGAvatar precision modes (phase 11) and the splat colors each uses
+GAGA_MODES = {"fast": "bf16", "exact": "f32"}
+# splat kernel vs its plain version, max abs error over the scene's largest
+# |color|: a transmittance that rounds the other way at T_EPS moves a pixel's
+# stop by one gaussian, at most T_EPS (1e-4) of the largest color. Such a
+# pixel is rare, so all but SPLAT_FAR_SHARE of the values must also lie
+# within SPLAT_NEAR of the largest color (NVIDIA H100 80GB HBM3, 700 W: max
+# 1.2e-6, no value beyond 1e-5; PERF.md, PR 3).
+SPLAT_TOL = 2e-4
+SPLAT_NEAR, SPLAT_FAR_SHARE = 1e-5, 1e-4
+# fast vs exact frames (uint8 yuv420p): most and mean |difference| in LSB
+# (NVIDIA H100 80GB HBM3, 700 W: max 1, mean 0.135; PERF.md, PR 3)
+GAGA_FAST_LSB = {"max": 4, "mean": 0.5}
+# operations the splat needs for each (pixel, gaussian) pair it composites
+# before the pixel stops, i.e. whose alpha passes 1/255 (ops/gsplat.py): the
+# alpha evaluation (dx, dy, the conic's quadratic form, exp, opacity, min:
+# 14 FLOP) and the composite (w = alpha T, 32 fused multiply-adds,
+# T *= 1 - alpha: 67 FLOP). Pairs whose alpha falls below the cut are left
+# out: a cull per pixel block could rule most of them out cheaply.
+SPLAT_EVAL_FLOP = 14
+SPLAT_COMPOSITE_FLOP = 67
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -151,17 +196,22 @@ def phase_device() -> str:
     return smi
 
 
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    rasterizer.LAUNCHES = ar_stack.LAUNCHES = enc_stack.LAUNCHES = gsplat.LAUNCHES = 0
+
+
 def phase_build() -> None:
-    """All three libraries at once: nvcc runs in a subprocess each."""
+    """All four libraries at once: nvcc runs in a subprocess each."""
     t0 = time.perf_counter()
-    mods = (rasterizer, ar_stack, enc_stack)
+    mods = (rasterizer, ar_stack, enc_stack, gsplat)
     with ThreadPoolExecutor(len(mods)) as pool:
         seconds = list(pool.map(lambda m: m.build(), mods))
     for mod, sec in zip(mods, seconds):
         print(f"[build] {os.path.relpath(mod.SOURCE, ROOT)}: {sec:.2f} s")
         for line in getattr(mod, "BUILD_REPORT", "").splitlines()[:2]:
             print(f"[build]   {line.strip()}")
-    print(f"[build] all three in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all four in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
@@ -272,10 +322,21 @@ def window0_bits(engine: ARTAvatarInferEngine, audio: np.ndarray) -> np.ndarray:
                                state.prev_attn_feat).cpu().numpy()
 
 
+def rendered_frames(path: str):
+    """The frame count of a video ``rendering`` wrote: from the .npz it falls
+    back to, None for an encoded video (after checking it is not empty)."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return z["frames"].shape[0]
+    if os.path.getsize(path) == 0:
+        raise AssertionError(f"{path} is empty")
+    return None
+
+
 def phase_full(dev: torch.device, image: int = IMAGE):
     """The production-width path through the engine's entry points. Returns
-    the rasterizer launches counted during it, the first window's code bits
-    and the ms per window of inference."""
+    the rasterizer launches counted during it, the first window's code bits,
+    the ms per window of inference, the audio and its motions."""
     out_dir = os.path.join(ROOT, "render_results", "chip_smoke")
     engine = ARTAvatarInferEngine(device=dev, config=tcfg.ModelConfig(),
                                   assets_dir=os.path.join(ROOT, "assets"),
@@ -287,7 +348,7 @@ def phase_full(dev: torch.device, image: int = IMAGE):
     n_windows = math.ceil(len(audio) / ws)
     engine.inference(audio[:ws])  # warm-up: cuBLAS/cuDNN handles and autotuning
 
-    rasterizer.LAUNCHES = ar_stack.LAUNCHES = enc_stack.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     motions = engine.inference(audio)
     t_inf = time.perf_counter() - t0
@@ -297,8 +358,8 @@ def phase_full(dev: torch.device, image: int = IMAGE):
     out_path = engine.rendering(audio, motions, shape_id="mesh", save_name="chip_smoke")
     t_render = time.perf_counter() - t0
     launches = rasterizer.LAUNCHES
-    if ar_stack.LAUNCHES or enc_stack.LAUNCHES:
-        raise AssertionError("the exact path launched a block-stack kernel")
+    if ar_stack.LAUNCHES or enc_stack.LAUNCHES or gsplat.LAUNCHES:
+        raise AssertionError("the exact mesh path launched a block-stack or splat kernel")
 
     if motions.shape != (250, 106) or not np.isfinite(motions).all():
         raise AssertionError(f"inference gave {motions.shape}, finite={np.isfinite(motions).all()}")
@@ -311,13 +372,7 @@ def phase_full(dev: torch.device, image: int = IMAGE):
     if streamed.shape != offline.shape or stream_err > 1e-4:
         raise AssertionError(f"stream vs offline: {streamed.shape} vs {offline.shape}, "
                              f"max abs err {stream_err:.3g}")
-    if out_path.endswith(".npz"):
-        with np.load(out_path) as z:
-            n_frames = z["frames"].shape[0]
-    else:
-        n_frames = None  # an encoded video; its frame count needs a decoder
-        if os.path.getsize(out_path) == 0:
-            raise AssertionError(f"{out_path} is empty")
+    n_frames = rendered_frames(out_path)
     if n_frames not in (None, 250):
         raise AssertionError(f"rendered {n_frames} frames, want 250")
     if launches < 250:
@@ -335,7 +390,7 @@ def phase_full(dev: torch.device, image: int = IMAGE):
           f"{t_render * 1e3 / 250:.2f} ms/frame; render_frames alone "
           f"{t_frames * 1e3 / 250:.2f} ms/frame; {launches} kernel launches")
     print(f"[full] wrote {out_path} ({n_frames if n_frames is not None else 'encoded'} frames)")
-    return launches, window0_bits(engine, audio), t_inf * 1e3 / n_windows
+    return launches, window0_bits(engine, audio), t_inf * 1e3 / n_windows, audio, motions
 
 
 def ar_inputs(model, b: int, level: int, cache_dtype: torch.dtype, seed: int):
@@ -543,7 +598,7 @@ def phase_encoder_kernel(model, packs: dict) -> dict:
 
 def with_env(env: dict, fn):
     """Run ``fn()`` with the precision switches set to ``env``."""
-    keys = ("ARTALK_AR_PRECISION", "ARTALK_AR_FUSED")
+    keys = ("ARTALK_AR_PRECISION", "ARTALK_AR_FUSED", "ARTALK_GAGA_PRECISION")
     saved = {k: os.environ.pop(k, None) for k in keys}
     os.environ.update(env)
     try:
@@ -568,7 +623,7 @@ def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
     n_windows = math.ceil(len(audio) / ws)
     engine.inference(audio[:ws])  # warm-up
 
-    ar_stack.LAUNCHES = enc_stack.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     motions = engine.inference(audio)
     ms_window = (time.perf_counter() - t0) * 1e3 / n_windows
@@ -675,7 +730,7 @@ def phase_pool(engine: ARTAvatarInferEngine) -> dict:
     a = [(rng.standard_normal(ws) * 0.1).astype(np.float32) for _ in range(3)]
     b = [(rng.standard_normal(ws) * 0.1).astype(np.float32) for _ in range(2)]
     pool = StreamPool(engine.model, max_sessions=4)
-    ar_stack.LAUNCHES = enc_stack.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     got_a, got_b = pool_scenario(pool, a, b)
     ms_tick = (time.perf_counter() - t0) * 1e3 / 4
@@ -819,6 +874,270 @@ def phase_times(model, ar_packs: dict, enc_packs: dict) -> dict:
     return out
 
 
+def phase_gaga(mode: str, dev: torch.device, audio: np.ndarray, motions: np.ndarray):
+    """The GAGAvatar path in one precision mode at full width through the
+    engine's entry points (inference of ``audio`` and rendering), then
+    ``motions`` (phase 5's) rendered in one call and in two halves. Returns
+    the engine, the one-call frames and the numbers."""
+    engine = with_env({"ARTALK_GAGA_PRECISION": mode}, lambda: ARTAvatarInferEngine(
+        load_gaga=True, device=dev, config=tcfg.ModelConfig(),
+        assets_dir=os.path.join(ROOT, "assets"),
+        output_dir=os.path.join(ROOT, "render_results", "chip_smoke"), image_size=IMAGE,
+        seed=0))
+    gaga = engine.gagavatar
+    if gaga.bf16 != (mode == "fast"):
+        raise AssertionError(f"[gaga {mode}] bf16 SR and colors {gaga.bf16}")
+    n_params = sum(p.numel() for p in gaga.nets.parameters())
+    torch.cuda.synchronize()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    own = engine.inference(audio)
+    out_path = engine.rendering(audio, own, shape_id="synthetic_0",
+                                save_name=f"chip_smoke_gaga_{mode}")
+    t_path = time.perf_counter() - t0
+    launches = {"gsplat": gsplat.LAUNCHES, "rasterize": rasterizer.LAUNCHES,
+                "ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    n, size = len(motions), CAM_PARAMS["size"]
+    n_frames = rendered_frames(out_path)
+    if n_frames not in (None, len(own)) or len(own) != n:
+        raise AssertionError(f"[gaga {mode}] rendered {n_frames} frames of {len(own)} motions")
+    if launches["gsplat"] < n or launches["rasterize"]:
+        raise AssertionError(f"[gaga {mode}] launches {launches}: want >= {n} splats, "
+                             "no rasterizer")
+
+    flame = engine.gagavatar_flame
+    t0 = time.perf_counter()
+    whole = gaga.render_motion_sequence("synthetic_0", motions, flame, colorspace="yuv420")
+    t_frames = time.perf_counter() - t0
+    half = n // 2 // 25 * 25   # on a chunk boundary
+    halves = np.concatenate([
+        gaga.render_motion_sequence("synthetic_0", motions[:half], flame, colorspace="yuv420"),
+        gaga.render_motion_sequence(None, motions[half:], flame, colorspace="yuv420")])
+    halves_diff = int(np.abs(halves.astype(np.int16) - whole.astype(np.int16)).max())
+    spread = float(whole[:, :size].astype(np.float32).std())
+    print(f"[gaga {mode}] networks {n_params / 1e6:.1f} M params (random, seed 0); "
+          f"inference + rendering of {len(own)} frames {t_path:.2f} s "
+          f"({t_path * 1e3 / len(own):.2f} ms/frame), launches {launches}; "
+          f"render_motion_sequence alone {t_frames * 1e3 / len(motions):.2f} ms/frame; "
+          f"two halves vs one call max |diff| {halves_diff} LSB; luma std {spread:.2f}")
+    print(f"[gaga {mode}] wrote {out_path} "
+          f"({n_frames if n_frames is not None else 'encoded'} frames)")
+    if whole.shape != (n, size * 3 // 2, size) or whole.dtype != np.uint8:
+        raise AssertionError(f"[gaga {mode}] frames {whole.shape} {whole.dtype}")
+    if halves_diff:
+        raise AssertionError(f"[gaga {mode}] two halves differ from one call by {halves_diff}")
+    if spread < 1.0:
+        raise AssertionError(f"[gaga {mode}] blank frames (luma std {spread:.3g})")
+    return engine, whole, {"launches": launches["gsplat"],
+                           "ms_frame": t_frames * 1e3 / len(motions)}
+
+
+def bench_splat_scene(dev: torch.device) -> list:
+    """bench.py's gsplat scene (seed 3): 5023 head-sized gaussians and two
+    296^2 sheets of small ones, 180,255 in all."""
+    n_head, n_plane = 5023, 296 * 296
+    n = n_head + 2 * n_plane
+    rng = np.random.default_rng(3)
+    xyz = np.concatenate([rng.normal(0, 0.09, (n_head, 3)),
+                          rng.normal(0, 0.12, (2 * n_plane, 3))]).astype(np.float32)
+    colors = rng.random((n, 32)).astype(np.float32)
+    opac = (rng.random((n, 1)) * 0.9 + 0.05).astype(np.float32)
+    scales = (rng.random((n, 3)) * 0.004 + 0.001).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    cam = np.array([[-1, 0, 0, 0], [0, 1, 0, 0], [0, 0, -1, 5000.0 / 512]], np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (xyz, colors, opac, scales, q, cam)]
+
+
+def avatar_splat_scene(engine: ARTAvatarInferEngine) -> list:
+    """The synthetic_0 avatar's gaussians at the neutral pose: the splat
+    arguments of one frame of the main path."""
+    gaga = engine.gagavatar
+    gaga.set_avatar_id("synthetic_0")
+    gaga._build_gs_params()
+    gs, cache = gaga._gs_params, gaga._feature_cache
+    dev = gs["xyz"].device
+    with torch.no_grad():
+        verts = engine.gagavatar_flame(cache["shapecode"], torch.zeros((1, 100), device=dev),
+                                       torch.zeros((1, 6), device=dev))[0]
+    cam = torch.cat([transform_emoca_to_p3d(torch.zeros((1, 3), device=dev))[0][:, :3],
+                     cache["transform"][:, 3:4]], dim=-1)
+    return [torch.cat([verts, gs["xyz"][0, NUM_FLAME_VERTS:]]), gs["colors"][0],
+            gs["opacities"][0], gs["scales"][0], gs["rotations"][0], cam]
+
+
+def reversed_tiles(inst: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """A planted fault: each tile's instance list back to front."""
+    off = offsets.long()
+    tile = torch.repeat_interleave(torch.arange(len(off) - 1, device=off.device), off.diff())
+    pos = torch.arange(len(inst), device=inst.device)
+    return inst[off[tile] + off[tile + 1] - 1 - pos]
+
+
+def unclamped_prepass(args: list, bf16: bool):
+    """A planted fault: the prepass without the MAX_RX / MAX_RY emission
+    clamp, so a splat larger than the 2x4-tile window loses its far tiles
+    instead of being cropped to its centre."""
+    saved = gsplat.MAX_RX, gsplat.MAX_RY
+    gsplat.MAX_RX = gsplat.MAX_RY = float("inf")
+    try:
+        return gsplat.prepass(*args, size=CAM_PARAMS["size"], bf16_colors=bf16)
+    finally:
+        gsplat.MAX_RX, gsplat.MAX_RY = saved
+
+
+def without_alpha_cut(fn):
+    """A planted fault: ``fn()`` with the 1/255 alpha cut dropped, so every
+    faint tail of a splat is composited."""
+    saved = gsplat.ALPHA_EPS
+    gsplat.ALPHA_EPS = 0.0
+    try:
+        return fn()
+    finally:
+        gsplat.ALPHA_EPS = saved
+
+
+def phase_splat(scenes: dict) -> dict:
+    """The splat kernel against splat_tiles_plain on each full-width scene
+    with float32 and bf16 colors, and the planted faults against the limit.
+    Returns the max abs error per color type."""
+    size = CAM_PARAMS["size"]
+    errs = dict.fromkeys(GAGA_MODES.values(), 0.0)
+    for scene, args in scenes.items():
+        for colors, bf16 in (("f32", False), ("bf16", True)):
+            geo, cols, inst, offsets = gsplat.prepass(*args, size=size, bf16_colors=bf16)
+            got = gsplat.splat_tiles(geo, cols, inst, offsets, size)
+            want = gsplat.splat_tiles_plain(geo, cols, inst, offsets, size)
+            torch.cuda.synchronize()
+            top = cols.float().abs().max().item()
+            err = (got - want).abs().max().item()
+            far = ((got - want).abs() > SPLAT_NEAR * top).float().mean().item()
+            faults = {"order reversed": gsplat.splat_tiles_plain(
+                geo, cols, reversed_tiles(inst, offsets), offsets, size),
+                "alpha cut dropped": without_alpha_cut(
+                    lambda: gsplat.splat_tiles_plain(geo, cols, inst, offsets, size))}
+            ugeo, ucols, uinst, uoffsets = unclamped_prepass(args, bf16)
+            if not torch.equal(uoffsets, offsets) or not torch.equal(uinst, inst):
+                faults["clamp dropped"] = gsplat.splat_tiles_plain(ugeo, ucols, uinst, uoffsets,
+                                                                   size)
+            rel = {f: (bad - want).abs().max().item() / top for f, bad in faults.items()}
+            ms = cuda_ms(lambda: gsplat.splat_tiles(geo, cols, inst, offsets, size), 20)
+            counts = offsets.diff()
+            print(f"[splat] {scene}, {colors} colors: {geo.shape[0]} gaussians, {len(inst)} "
+                  f"instances (largest tile {counts.max().item()}, median "
+                  f"{counts.median().item()}); kernel vs plain max abs err {err:.3g} "
+                  f"= {err / top:.3g} of the largest |color| {top:.3g} (limit {SPLAT_TOL}), "
+                  f"share of values beyond {SPLAT_NEAR} of it {far:.3g} (limit "
+                  f"{SPLAT_FAR_SHARE}); "
+                  "planted faults: " + ", ".join(f"{f} {r:.3g}" for f, r in rel.items())
+                  + ("" if "clamp dropped" in rel else "; the clamp changes no list here")
+                  + f"; kernel {ms:.4f} ms")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"[splat] {scene} {colors}: non-finite output")
+            if err > SPLAT_TOL * top or far > SPLAT_FAR_SHARE:
+                raise AssertionError(f"[splat] {scene} {colors}: kernel off the plain version")
+            if min(rel.values()) <= SPLAT_TOL:
+                raise AssertionError(f"[splat] {scene} {colors}: a planted fault passes: {rel}")
+            errs[colors] = max(errs[colors], err)
+    return errs
+
+
+def profile_frames(frame, colors: str, reps: int = 5) -> None:
+    """torch.profiler over ``reps`` calls of ``frame``: the device's busy share
+    of the host clock, the kernels launched per frame, and the kernels that
+    take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            frame()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    launches = sum(n for n, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"[profile] gaga {colors}: {reps} frames, device busy {busy_us / wall_us:.3f} of "
+          f"the host clock ({busy_us / reps / 1e3:.3f} of {wall_us / reps / 1e3:.3f} ms per "
+          f"frame), {launches / reps:.0f} device activities per frame; most device time: "
+          + "; ".join(f"{name[:60]} {us / reps / 1e3:.3f} ms x{n // reps}"
+                      for name, (n, us) in top))
+
+
+def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
+    """CUDA-event times of one GAGAvatar frame's parts on the avatar scene,
+    and the splat kernel's bound from this frame's instance lists."""
+    gaga = engine.gagavatar
+    size = CAM_PARAMS["size"]
+    args = avatar_splat_scene(engine)
+    bf16 = gaga.bf16
+    prep_ms = cuda_ms(lambda: gsplat.prepass(*args, size=size, bf16_colors=bf16), 10)
+    geo, cols, inst, offsets = gsplat.prepass(*args, size=size, bf16_colors=bf16)
+    kernel_ms = cuda_ms(lambda: gsplat.splat_tiles(geo, cols, inst, offsets, size), 50)
+    plain_ms = cuda_ms(lambda: gsplat.splat_tiles_plain(geo, cols, inst, offsets, size), 2)
+    render = gsplat.splat_tiles(geo, cols, inst, offsets, size)
+    sr_dtype = torch.bfloat16 if bf16 else None
+    with torch.no_grad():
+        sr_ms = cuda_ms(lambda: gaga._upsampler(render[None], compute_dtype=sr_dtype), 10)
+    frame_ms = cuda_ms(lambda: gaga._frame(args[0][:NUM_FLAME_VERTS], args[5]), 10)
+    profile_frames(lambda: gaga._frame(args[0][:NUM_FLAME_VERTS], args[5]), colors)
+    _, evaluated, composited = gsplat.composite_plain(geo, cols, inst, offsets, size)
+    evaluated, composited = int(evaluated), int(composited)
+    # each input read once (the gaussians' 6 geometry floats and 32 colors,
+    # the instance lists), the (32, size, size) float32 image written once
+    moved = (geo.shape[0] * (6 * 4 + 32 * cols.element_size()) + inst.numel() * 4
+             + offsets.numel() * 4 + 32 * size * size * 4)
+    flop = composited * (SPLAT_EVAL_FLOP + SPLAT_COMPOSITE_FLOP)
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"[times] gaga {colors} colors, SR {'bf16' if bf16 else 'float32'}, per "
+          f"frame: splat kernel {kernel_ms:.4f} ms, splat_tiles_plain {plain_ms:.2f} ms, "
+          f"prepass {prep_ms:.4f} ms, SR {sr_ms:.4f} ms, whole frame (prepass + splat + SR "
+          f"+ clip) {frame_ms:.4f} ms")
+    print(f"[times] gsplat/{colors} bound: {moved} bytes -> {bytes_ms:.5f} ms; "
+          f"{composited} composites x ({SPLAT_EVAL_FLOP} + {SPLAT_COMPOSITE_FLOP}) FLOP -> "
+          f"{ops_ms:.5f} ms; the kernel reaches {bound / kernel_ms:.3f} of the bound "
+          f"(it evaluates {evaluated} pairs of its listed tiles, "
+          f"{evaluated / composited:.2f} per composite)")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+            "prepass_ms": prep_ms, "sr_ms": sr_ms, "frame_ms": frame_ms}
+
+
+def phase_gaga_all(dev: torch.device, audio: np.ndarray, motions: np.ndarray) -> dict:
+    """Phases 11-13: the GAGAvatar path per precision mode, the splat kernel
+    on both scenes, the times. Returns the kernels-line fields per color type."""
+    frames, gaga, times, splat_scenes = {}, {}, {}, {"bench": bench_splat_scene(dev)}
+    for mode, colors in GAGA_MODES.items():
+        torch.cuda.empty_cache()
+        engine, frames[mode], gaga[mode] = phase_gaga(mode, dev, audio, motions)
+        times[colors] = phase_gaga_times(engine, colors)
+        if mode == "exact":
+            splat_scenes["avatar"] = avatar_splat_scene(engine)
+        del engine
+    diff = np.abs(frames["fast"].astype(np.int16) - frames["exact"].astype(np.int16))
+    reading = {"max": int(diff.max()), "mean": float(diff.mean())}
+    print(f"[gaga] fast vs exact frames: max |diff| {reading['max']} LSB, mean "
+          f"{reading['mean']:.4f} LSB, {float((diff > 2).mean()):.5f} of the values beyond 2 "
+          f"LSB (limits {GAGA_FAST_LSB})")
+    if any(reading[k] > lim for k, lim in GAGA_FAST_LSB.items()):
+        raise AssertionError(f"fast GAGAvatar frames off the exact ones: {reading}")
+    errs = phase_splat(splat_scenes)
+    return {colors: {"launches": gaga[mode]["launches"], "max_abs_err": errs[colors],
+                     **{k: v for k, v in times[colors].items()
+                        if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                     "ms_frame": gaga[mode]["ms_frame"]}
+            for mode, colors in GAGA_MODES.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -830,7 +1149,7 @@ def main() -> int:
     dev = torch.device("cuda")
     kernel = phase_kernel(flame_data, dev)
     phase_golden(dev)
-    raster_launches, exact_bits, exact_ms = phase_full(dev)
+    raster_launches, exact_bits, exact_ms, audio, motions = phase_full(dev)
     torch.cuda.empty_cache()
 
     modes, engine = {"exact": {"ms_window": exact_ms}}, None
@@ -850,11 +1169,14 @@ def main() -> int:
     ar_err = phase_ar_kernel(model, ar_packs)
     enc_err = phase_encoder_kernel(model, enc_packs)
     times = phase_times(model, ar_packs, enc_packs)
+    del engine, model, ar_packs, enc_packs
+    splat = phase_gaga_all(dev, audio, motions)
 
     print(f"[summary] {smi}: inference ms/window by mode "
           + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())
-          + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; whole run "
-          f"{time.perf_counter() - t_start:.1f} s")
+          + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; GAGAvatar ms/frame "
+          + ", ".join(f"{m} {splat[c]['ms_frame']:.2f}" for m, c in GAGA_MODES.items())
+          + f"; whole run {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": "rasterize", "route": "cuda",
                 "source": "artalk_tpu_torch/csrc/rasterizer.cu",
                 "replaces": "artalk_tpu/ops/rasterizer.py:196",
@@ -871,6 +1193,11 @@ def main() -> int:
                         "replaces": "artalk_tpu/ops/encoder_block_stack.py:339",
                         "launches": modes[mode]["launches"]["encoder"],
                         "max_abs_err": enc_err[name], **times[f"encoder/{name}"]})
+    for colors in ("f32", "bf16"):
+        kernels.append({"name": f"gsplat/{colors}", "route": "cuda",
+                        "source": "artalk_tpu_torch/csrc/gsplat.cu",
+                        "replaces": "artalk_tpu/ops/gsplat.py:638",
+                        **{k: v for k, v in splat[colors].items() if k != "ms_frame"}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
-rasterizer, the AR block stack and the encoder block stack.
+rasterizer, the AR block stack, the encoder block stack and the gaussian
+splat.
 
 Marked ``cuda``: skipped without an NVIDIA GPU. This file imports neither jax
 nor artalk_tpu, so it also runs on a GPU machine without them; there, skip
@@ -12,7 +13,12 @@ contraction, so face ids and depths must be bit-identical. The block stacks
 sum in another order than cuBLAS: float32 packs are held to 1e-4 (features)
 and 1e-5 (keys and values), bf16 and int8 packs to 5e-2 (the AR stack) and to
 tests/test_encoder_fused.py's 0.08 and 0.15 (the encoder stack); a batch row
-must equal the same row run alone exactly.
+must equal the same row run alone exactly. The splat kernel and its plain
+version composite the same instance lists in the same order, but sum in
+another order (the plain version's transmittance is a cumprod, its colors a
+matmul); a transmittance that rounds the other way at T_EPS moves the stop of
+a pixel by one gaussian, at most T_EPS times its largest color (colors in
+[0, 1] here), so they are held to 2e-4.
 """
 
 import math
@@ -26,6 +32,7 @@ from artalk_tpu_torch.models.ar_model import _Blocks
 from artalk_tpu_torch.models.wav2vec import _Layers
 from artalk_tpu_torch.ops import ar_block_stack as tab
 from artalk_tpu_torch.ops import encoder_block_stack as teb
+from artalk_tpu_torch.ops import gsplat as tgs
 from artalk_tpu_torch.ops import rasterizer as tr
 
 PACK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
@@ -167,3 +174,56 @@ def test_kernel_rejects_bad_inputs(cuda):
         tr.rasterize(verts, faces, height=8, width=32)
     with pytest.raises(ValueError, match="faces"):
         tr.rasterize(verts.float(), faces.cpu(), height=8, width=32)
+
+
+def _splat_scenes():
+    """tests/test_gsplat.py's scenes (random 400, empty, front to back, the
+    oversized splat), and a denser one of 20,000 gaussians."""
+    cam = np.array([[-1, 0, 0, 0], [0, 1, 0, 0], [0, 0, -1, 5000.0 / 512]], np.float32)
+
+    def random_scene(rng, n=400, spread=0.08):
+        q = rng.normal(size=(n, 4))
+        return (rng.normal(0, spread, (n, 3)), rng.random((n, 32)), rng.random((n, 1)),
+                rng.random((n, 3)) * 0.03 + 0.005, q / np.linalg.norm(q, axis=1, keepdims=True))
+
+    def single(xyz, colors, opac, scale):
+        n = len(xyz)
+        return xyz, colors, opac, np.full((n, 3), scale), np.tile([[1.0, 0, 0, 0]], (n, 1))
+
+    scenes = [random_scene(np.random.default_rng(0)),
+              random_scene(np.random.default_rng(1), n=20000, spread=0.15),
+              single([[0.0, 0.0, 100.0]], np.ones((1, 32)), [[1.0]], 0.01),
+              single([[0, 0, 0.5], [0, 0, -0.5]], np.stack([np.ones(32), np.zeros(32)]),
+                     [[0.999], [0.999]], 0.02),
+              single(np.zeros((1, 3)), np.ones((1, 32)), [[0.9]], 0.7)]
+    for scene in scenes:
+        yield [np.asarray(a, np.float32) for a in (*scene, cam)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_colors", [False, True])
+@pytest.mark.parametrize("size", [128, 512])
+def test_splat_matches_plain(cuda, size, bf16_colors):
+    for scene in _splat_scenes():
+        args = [torch.from_numpy(a).to(cuda) for a in scene]
+        before = tgs.LAUNCHES
+        got = tgs.rasterize_gaussians(*args, size=size, bf16_colors=bf16_colors)
+        assert tgs.LAUNCHES == before + 1
+        want = tgs.rasterize_gaussians_plain(*args, size=size, bf16_colors=bf16_colors)
+        torch.cuda.synchronize()
+        assert got.shape == (32, size, size) and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_splat_rejects_bad_inputs(cuda):
+    geo, colors, inst, offsets = tgs.prepass(
+        *[torch.from_numpy(a).to(cuda) for a in next(_splat_scenes())], size=128)
+    with pytest.raises(ValueError, match="geo"):
+        tgs.splat_tiles(geo.double(), colors, inst, offsets, 128)
+    with pytest.raises(ValueError, match="colors"):
+        tgs.splat_tiles(geo, colors.half(), inst, offsets, 128)
+    with pytest.raises(ValueError, match="offsets"):
+        tgs.splat_tiles(geo, colors, inst, offsets[:-1], 128)
+    with pytest.raises(ValueError, match="one device"):
+        tgs.splat_tiles(geo, colors, inst.cpu(), offsets, 128)

@@ -108,7 +108,8 @@ def test_rendering_matches_jax(engines, rng):
     assert frames.shape == want.shape == (len(motions), SIZE * 3 // 2, SIZE)
     diff = np.abs(frames.astype(np.int16) - want.astype(np.int16))
     assert (diff <= 1).mean() >= 0.999, (diff > 1).mean()
-    with pytest.raises(NotImplementedError, match="GAGAvatar"):
+    # an avatar id needs the GAGAvatar renderer, which this engine did not load
+    with pytest.raises(RuntimeError, match="load_gaga=True"):
         teng.rendering(audio, motions, shape_id="someone.jpg")
 
 

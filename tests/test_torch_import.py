@@ -12,8 +12,9 @@ import torch
 from artalk_tpu_torch import config as tcfg
 from artalk_tpu_torch import engine as tengine
 from artalk_tpu_torch.models.ar_model import BitwiseARModel
+from artalk_tpu_torch.models.gagavatar import avatar as gaga_avatar
 from artalk_tpu_torch.models.wav2vec import Wav2VecEncoder
-from artalk_tpu_torch.ops import rasterizer
+from artalk_tpu_torch.ops import gsplat, rasterizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,6 +26,7 @@ for m in pkgutil.walk_packages(artalk_tpu_torch.__path__, "artalk_tpu_torch."):
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "artalk_tpu"))
+print(" ".join(sorted(m for m in sys.modules if m.startswith("artalk_tpu_torch."))))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -32,10 +34,15 @@ sys.exit(1 if bad else 0)
 
 def test_import_leaves_jax_out():
     """Every module of the port, and chip_smoke.py, import without jax or
-    artalk_tpu (whose __init__ imports jax)."""
+    artalk_tpu (whose __init__ imports jax); the GAGAvatar modules are among
+    them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    imported = set(proc.stdout.split("\n")[0].split())
+    gaga = {f"artalk_tpu_torch.models.gagavatar.{m}"
+            for m in ("avatar", "dino", "generators", "style_unet", "watermark")}
+    assert gaga | {"artalk_tpu_torch.ops.gsplat", "artalk_tpu_torch.ops.resize2d"} <= imported
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -65,6 +72,25 @@ def test_engine_precision_switches_resolve(monkeypatch, env, want):
     assert (cfg.bf16_audio, cfg.bf16_ar, cfg.fused_ar, cfg.int8_ar) == want
 
 
+@pytest.mark.parametrize("env,want", [
+    ({}, True),
+    ({"ARTALK_GAGA_PRECISION": "exact"}, False),
+    ({"ARTALK_BF16_SR": "0"}, True),
+    ({"ARTALK_GAGA_PRECISION": "exact", "ARTALK_BF16_SR": "1"}, False),
+])
+def test_gaga_precision_switches_resolve(monkeypatch, env, want):
+    """bf16 SR and splat colors follow ARTALK_GAGA_PRECISION alone; the JAX
+    package's legacy ARTALK_BF16_SR does not split them in the port."""
+    for k in ("ARTALK_GAGA_PRECISION", "ARTALK_BF16_SR"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert gaga_avatar.resolve_precision() == want
+    monkeypatch.setenv("ARTALK_GAGA_PRECISION", "bogus")
+    with pytest.raises(ValueError, match="exact"):
+        gaga_avatar.resolve_precision()
+
+
 @pytest.mark.parametrize("kwargs", [
     {"do_stable_layer_norm": False}, {"feat_extract_norm": "group"},
     {"use_flash_attention": True}])
@@ -79,7 +105,7 @@ def test_mimi_encoder_raises():
         BitwiseARModel(cfg)
 
 
-@pytest.mark.parametrize("flag", ["--load_gaga", "--run_app"])
+@pytest.mark.parametrize("flag", ["--run_app"])
 def test_cli_unported_flags_raise(flag):
     from artalk_tpu_torch.cli import main
 
@@ -94,3 +120,13 @@ def test_rasterize_other_devices_raise():
     faces = torch.zeros((1, 3), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         rasterizer.rasterize(verts, faces, height=8, width=32)
+
+
+def test_rasterize_gaussians_other_devices_raise():
+    """The splat, likewise: CPU tensors take rasterize_gaussians_plain, CUDA
+    tensors the kernel, any other device raises."""
+    n = 4
+    args = [torch.zeros(shape, device="meta") for shape in
+            ((n, 3), (n, 32), (n, 1), (n, 3), (n, 4), (3, 4))]
+    with pytest.raises(ValueError, match="unsupported device"):
+        gsplat.rasterize_gaussians(*args, size=128)
