@@ -13,14 +13,17 @@ compile cache). Numpy-only helpers are copied rather than imported.
 
 Ported so far: the mesh path of ``python -m artalk_tpu_torch.cli -a <wav>`` in
 every precision mode (exact, ``ARTALK_AR_FUSED=1``, ``ARTALK_AR_PRECISION=fast``
-and ``int8``), ``serving.StreamPool``, and the GAGAvatar path of
+and ``int8``), ``serving.StreamPool``, the GAGAvatar path of
 ``python -m artalk_tpu_torch.cli -a <wav> --load_gaga -i synthetic_0``
-(``models/gagavatar``; ``ARTALK_GAGA_PRECISION=fast|exact``). Four
-hand-written CUDA kernels carry them: the z-buffer rasterizer
-(``csrc/rasterizer.cu``), the AR block stack (``csrc/ar_block_stack.cu``), the
-wav2vec2 encoder stack (``csrc/encoder_block_stack.cu``) and the 32-channel
-gaussian splat (``csrc/gsplat.cu``); everything else on the paths is plain
-PyTorch. On the CPU every kernel takes its plain version, which the tests
+(``models/gagavatar``; ``ARTALK_GAGA_PRECISION=fast|exact``), and every audio
+encoder: wav2vec2 (``models/wav2vec``; ``Wav2VecConfig.use_flash_attention``),
+HuBERT (``models/hubert``) and Mimi (``models/mimi``; ``"AUDIO_ENCODER":
+"mimi"`` in ``config.json``). Five hand-written CUDA kernels carry them: the
+z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block stack
+(``csrc/ar_block_stack.cu``), the wav2vec2 encoder stack
+(``csrc/encoder_block_stack.cu``), the 32-channel gaussian splat
+(``csrc/gsplat.cu``) and flash attention (``csrc/flash_attention.cu``);
+everything else on the paths is plain PyTorch. On the CPU every kernel takes its plain version, which the tests
 (``python -m pytest tests/test_torch_*.py``) hold against the JAX package.
 ``ROADMAP.md`` lists what is still to be ported.
 """

@@ -1,9 +1,9 @@
 """Typed configuration, same JSON schema as ``artalk_tpu/config.py``.
 
 Reference-format ``config.json`` files load verbatim. The dataclasses mirror
-the JAX package's field for field, except that ``ModelConfig`` has no
-``mimi`` field yet: the mimi encoder is not ported (ROADMAP.md Queue 1
-item 12), and the JAX default for that field pulls in jax.
+the JAX package's field for field. ``MimiEncoderConfig`` lives here (the JAX
+package keeps it in ``models/mimi.py`` and imports it lazily to break an
+import cycle), so ``ModelConfig.mimi`` takes a plain default.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ class ARConfig:
     depth: int = 12
     num_heads: int = 12
     prev_ratio: int = 1
-    audio_encoder: str = "wav2vec"  # 'wav2vec' | 'mimi' (mimi not ported yet)
+    audio_encoder: str = "wav2vec"  # 'wav2vec' | 'mimi'
     embed_dim: int = 768
     style_dim: int = 128
     mlp_ratio: float = 4.0
@@ -78,16 +78,18 @@ class Wav2VecConfig:
     conv_stride: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
     conv_kernel: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
     conv_bias: bool = True
-    feat_extract_norm: str = "layer"   # only "layer" is ported
+    feat_extract_norm: str = "layer"   # "layer" (xls-r) | "group" (base/HuBERT)
     hidden_size: int = 1024
     num_hidden_layers: int = 24
     num_attention_heads: int = 16
     intermediate_size: int = 4096
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
-    do_stable_layer_norm: bool = True  # only the stable (pre-LN) layout is ported
+    do_stable_layer_norm: bool = True  # pre-LN (xls-r) | post-LN (base/HuBERT)
     layer_norm_eps: float = 1e-5
-    use_flash_attention: bool = False  # flash kernel not ported yet
+    # the layer loop's attention through the flash-attention kernel
+    # (ops/attention.py) instead of the plain softmax
+    use_flash_attention: bool = False
 
     def num_output_frames(self, num_samples: int) -> int:
         """Output sequence length of the conv feature extractor."""
@@ -95,6 +97,62 @@ class Wav2VecConfig:
         for k, s in zip(self.conv_kernel, self.conv_stride):
             length = (length - k) // s + 1
         return length
+
+
+def hubert_base_config(**overrides) -> Wav2VecConfig:
+    """facebook/hubert-base-ls960 architecture constants: group-norm conv0,
+    bias-free convs, post-LN 12-layer 768-wide encoder."""
+    kwargs = dict(
+        conv_dim=(512, 512, 512, 512, 512, 512, 512),
+        conv_stride=(5, 2, 2, 2, 2, 2, 2),
+        conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+        conv_bias=False,
+        feat_extract_norm="group",
+        hidden_size=768,
+        num_hidden_layers=12,
+        num_attention_heads=12,
+        intermediate_size=3072,
+        num_conv_pos_embeddings=128,
+        num_conv_pos_embedding_groups=16,
+        do_stable_layer_norm=False,
+    )
+    kwargs.update(overrides)
+    return Wav2VecConfig(**kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class MimiEncoderConfig:
+    """Mimi codec encode path (HF ``MimiModel`` defaults): SEANet, an 8-layer
+    RoPE transformer with a sliding window, split RVQ of 32 codebooks."""
+
+    sampling_rate: int = 24000
+    num_filters: int = 64
+    num_residual_layers: int = 1
+    ratios: Sequence[int] = (8, 6, 5, 4)   # upsampling_ratios (decoder order)
+    kernel_size: int = 7
+    last_kernel_size: int = 3
+    residual_kernel_size: int = 3
+    dilation_growth_rate: int = 2
+    compress: int = 2
+    hidden_size: int = 512
+    num_hidden_layers: int = 8
+    num_heads: int = 8
+    head_dim: int = 64
+    intermediate_size: int = 2048
+    codebook_size: int = 2048
+    codebook_dim: int = 256
+    num_quantizers: int = 32
+    num_semantic_quantizers: int = 1
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    sliding_window: int = 250
+    layer_scale: float = 0.01
+
+    def num_output_frames(self, samples_24k: int) -> int:
+        length = samples_24k
+        for ratio in reversed(self.ratios):
+            length = -(-length // ratio)
+        return -(-length // 2)  # final stride-2 downsample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +164,7 @@ class ModelConfig:
     ar: ARConfig = dataclasses.field(default_factory=ARConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     wav2vec: Wav2VecConfig = dataclasses.field(default_factory=Wav2VecConfig)
+    mimi: MimiEncoderConfig = dataclasses.field(default_factory=MimiEncoderConfig)
     fps: float = 25.0
     sample_rate: int = 16000
     # run the wav2vec2 encoder in bfloat16 (norm statistics and softmax stay

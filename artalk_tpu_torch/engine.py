@@ -14,6 +14,11 @@ construction, as there: ``ARTALK_AR_PRECISION`` = ``exact`` (default) /
 kernels), and ``ARTALK_AR_FUSED=1`` (the block-stack kernels). The fused
 paths' weight packs are built once here.
 
+The audio encoder follows the configuration: ``"AUDIO_ENCODER": "mimi"`` in
+``<assets_dir>/config.json`` (``ARConfig.audio_encoder``) selects the Mimi
+codec, and ``Wav2VecConfig.use_flash_attention`` routes the wav2vec2 layers'
+attention through the flash-attention kernel.
+
 Importing this module turns TF32 off for matmuls and cuDNN convolutions:
 greedy code bits flip under TF32 (through the wav2vec conv frontend, the
 grouped pos-conv and the exact resize matrices), so exact mode needs full
@@ -63,7 +68,8 @@ def _resolve_ar_precision(config: ModelConfig) -> ModelConfig:
 
 def build_fused_packs(model: BitwiseARModel) -> None:
     """Build the fused paths' weight packs once (on the model's device),
-    unless the model holds them already."""
+    unless the model holds them already. The audio pack stays None where the
+    encoder has no fused path (Mimi, the post-LN wav2vec2 layout)."""
     if model.cfg.fused_ar and model.fused_pack is None:
         model.fused_pack = model.pack_fused_decode()
     if model.cfg.fused_ar and model.fused_audio_pack is None:

@@ -1,0 +1,28 @@
+"""The port's models: motion tokenizer, AR generator, audio encoders
+(wav2vec2, HuBERT, Mimi), style encoder, FLAME geometry, mesh renderer.
+
+The names of the JAX package's ``models/__init__.py`` are exported lazily:
+importing a submodule runs this file, and the encoders import the ops that
+import ``models.nn``, so eager imports here would be circular.
+"""
+
+_EXPORTS = {
+    "BitwiseVAE": ".bitwise_vae",
+    "StyleEncoder": ".style_encoder",
+    "Wav2VecEncoder": ".wav2vec",
+    "HubertEncoder": ".hubert",
+    "MimiEncoder": ".mimi",
+    "BitwiseARModel": ".ar_model",
+    "FlameModel": ".flame",
+    "MeshRenderer": ".renderer",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -11,11 +11,18 @@ once and append their K/V to a cache laid out as ``[prev prefix | levels]``,
 so the level-causal mask is the cache extent. The caches are local to one
 window and are written in place.
 
+The audio encoder is the wav2vec2 encoder (``models/wav2vec.py``; its
+``use_flash_attention`` routes the layers' attention through the
+flash-attention kernel) or, with ``ARConfig.audio_encoder = "mimi"``, the Mimi
+codec (``models/mimi.py``: 512-d conditioning at 12.5 Hz).
+
 The configuration's precision switches route the decode as the JAX model
-does: ``bf16_audio`` runs the audio encoder in bfloat16, ``bf16_ar`` the block
-walk; ``fused_ar`` runs each level's blocks as one launch of the AR
+does: ``bf16_audio`` runs the wav2vec2 encoder in bfloat16 (Mimi stays
+float32), ``bf16_ar`` the block walk; ``fused_ar`` runs each level's blocks as one launch of the AR
 block-stack kernel (``ops/ar_block_stack.py``) against a merged-head cache,
-and the encoder layers as one launch of ``ops/encoder_block_stack.py``, with
+and the wav2vec2 stable-LN encoder layers as one launch of
+``ops/encoder_block_stack.py`` (Mimi and the post-LN layout have no fused
+path), with
 float32, bfloat16 or (``int8_ar``) int8 weight packs. Float32 packs keep the
 JAX package's routing rules: the AR kernel at batch <= 2 only, the encoder
 kernel at batch 1 only. A caller that decodes repeatedly builds the packs
@@ -40,16 +47,9 @@ from ..ops.resample1d import resize_area, resize_linear
 from . import nn as tnn
 from .bitwise_vae import BitwiseVAE
 from .bsq import bits_to_values
+from .mimi import MimiEncoder
 from .style_encoder import StyleEncoder
 from .wav2vec import Wav2VecEncoder
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configuration values whose code is not ported yet."""
-    if cfg.ar.audio_encoder != "wav2vec":
-        raise NotImplementedError(
-            f"audio encoder {cfg.ar.audio_encoder!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
 
 
 class WindowState(NamedTuple):
@@ -88,7 +88,6 @@ class BitwiseARModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.patch_nums = tuple(cfg.vae.patch_nums)
         self.total_tokens = sum(self.patch_nums)
@@ -106,7 +105,12 @@ class BitwiseARModel(nn.Module):
         self.vae = BitwiseVAE(cfg.vae)
         self.style_encoder = StyleEncoder(motion_dim=cfg.vae.motion_dim,
                                           feature_dim=cfg.ar.style_dim)
-        self.audio_encoder = Wav2VecEncoder(cfg.wav2vec)
+        if cfg.ar.audio_encoder == "wav2vec":
+            self.audio_encoder = Wav2VecEncoder(cfg.wav2vec)
+        elif cfg.ar.audio_encoder == "mimi":
+            self.audio_encoder = MimiEncoder(cfg.mimi)
+        else:
+            raise ValueError(f"unknown audio encoder {cfg.ar.audio_encoder!r}")
         self.vqfeat_embed = tnn.Linear(cfg.vae.code_dim, d)
         self.style_cond_embed = tnn.Linear(cfg.ar.style_dim, d)
         self.blocks = _Blocks(self.depth, d, cd, round(d * cfg.ar.mlp_ratio), self.num_heads)
@@ -221,10 +225,13 @@ class BitwiseARModel(nn.Module):
             dtype = torch.int8
         return pack_block_weights(self.blocks, self.num_heads, dtype=dtype)
 
-    def pack_fused_audio(self) -> dict:
+    def pack_fused_audio(self) -> Optional[dict]:
         """Weight pack of the encoder layers for the encoder block-stack
         kernel: int8 with ``int8_ar``, else bfloat16 with ``bf16_audio``, else
-        float32. Packed from the float32 parameters."""
+        float32. Packed from the float32 parameters. None where the encoder
+        has no fused path: Mimi, and the post-LN wav2vec2 layout."""
+        if self.cfg.ar.audio_encoder != "wav2vec" or not self.cfg.wav2vec.do_stable_layer_norm:
+            return None
         dtype = torch.float32
         if self.cfg.bf16_audio:
             dtype = torch.bfloat16
@@ -313,18 +320,21 @@ class BitwiseARModel(nn.Module):
         """(B, window_samples) audio -> (B, 181, audio_dim) multi-scale
         condition: encoder features area-resized to each scale.
 
-        With ``bf16_audio`` the encoder runs on bfloat16 copies of its
+        Mimi runs in float32 in every mode, as in the JAX package. With
+        ``bf16_audio`` the wav2vec2 encoder runs on bfloat16 copies of its
         parameters and a bfloat16 chunk (norm statistics and softmax stay
         float32); with ``fused_ar`` its layers go through the block-stack
         kernel (float32 packs at batch 1 only). The condition is float32."""
         cfg = self.cfg
+        enc = self.audio_encoder
         fused_pack = None
         if cfg.fused_ar:
             fused_pack = self.fused_audio_pack
             if fused_pack is None:
                 fused_pack = self.pack_fused_audio()
-        enc = self.audio_encoder
-        if cfg.bf16_audio:
+        if isinstance(enc, MimiEncoder):
+            feat = enc(audio_chunk)
+        elif cfg.bf16_audio:
             tensors = {**dict(enc.named_parameters()), **dict(enc.named_buffers())}
             tensors = {k: t.to(torch.bfloat16) if t.dtype == torch.float32 else t
                        for k, t in tensors.items()}

@@ -1,20 +1,27 @@
-"""wav2vec2-xls-r-300m audio encoder (stable-LN layout).
+"""wav2vec2 audio encoder: the xls-r (stable-LN) and base/HuBERT layouts.
 
 Counterpart of ``artalk_tpu/models/wav2vec.py`` on its XLA path: per-utterance
-z-norm with unbiased std -> 7-layer conv stack, each conv followed by a
-channel LayerNorm and erf-GELU -> feature projection -> grouped positional
-conv (SamePad drops the trailing step for an even kernel) -> 24 pre-LN
-encoder layers -> final LayerNorm. For the 4 s window (64 000 samples) the
-conv stack yields 199 frames.
+z-norm with unbiased std -> conv stack -> feature projection -> grouped
+positional conv (SamePad drops the trailing step for an even kernel) -> the
+encoder layers. Two layouts, as in HF's wav2vec2 family:
 
-With a ``fused_pack`` (``pack_fused``) the 24 layers run as one launch of the
-encoder block-stack kernel (``ops/encoder_block_stack.py``) instead of the
-layer-by-layer plain torch; bf16 and int8 packs also take batches of windows,
-float32 packs batch 1 only, as the JAX package routes them.
+- ``feat_extract_norm="layer"`` + ``do_stable_layer_norm=True`` (xls-r-300m,
+  the production encoder): every conv is followed by a channel LayerNorm and
+  erf-GELU; pre-LN layers; the final LayerNorm after the stack. For the 4 s
+  window (64 000 samples) the conv stack yields 199 frames.
+- ``feat_extract_norm="group"`` + ``do_stable_layer_norm=False`` (base and
+  HuBERT, ``models/hubert.py``): conv0 is followed by a per-channel norm over
+  time (biased variance), later convs by GELU alone (only conv0 has a
+  ``norm``); the encoder LayerNorm comes before the stack, and each layer is
+  LN(h + attention), then LN(h + FFN).
 
-Not ported yet (ROADMAP.md Queue 1 item 12): the group-norm/HuBERT post-LN
-layout. The flash-attention kernel waits in ROADMAP.md Queue 2; its switch
-raises ``NotImplementedError``.
+With ``use_flash_attention`` the layer loop's attention runs through the
+flash-attention kernel (``ops/attention.py``) instead of the plain softmax.
+With a ``fused_pack`` (``pack_fused``; stable layout) the layers run as one
+launch of the encoder block-stack kernel (``ops/encoder_block_stack.py``)
+instead of the layer loop, so the flash kernel does not launch; bf16 and int8
+packs also take batches of windows, float32 packs batch 1 only, as the JAX
+package routes them.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Wav2VecConfig
+from ..ops.attention import flash_attention
 from ..ops.encoder_block_stack import (encoder_block_stack, pack_batched_ok,
                                        pack_encoder_weights)
 from . import nn as tnn
@@ -62,10 +70,13 @@ class _Conv(nn.Module):
 
 
 class _ConvLayer(nn.Module):
-    def __init__(self, out_ch: int, in_ch: int, k: int, bias: bool, eps: float):
+    """A conv, with the ``norm`` parameters (scale, bias) where the layout has
+    them: every layer in "layer" mode, conv0 alone in "group" mode."""
+
+    def __init__(self, out_ch: int, in_ch: int, k: int, bias: bool, eps: float, norm: bool):
         super().__init__()
         self.conv = _Conv(out_ch, in_ch, k, bias)
-        self.norm = tnn.LayerNorm(out_ch, eps=eps)
+        self.norm = tnn.LayerNorm(out_ch, eps=eps) if norm else None
 
 
 class _FeatureProjection(nn.Module):
@@ -102,20 +113,16 @@ class _Encoder(nn.Module):
 class Wav2VecEncoder(nn.Module):
     def __init__(self, cfg: Wav2VecConfig = Wav2VecConfig()):
         super().__init__()
-        if cfg.feat_extract_norm != "layer" or not cfg.do_stable_layer_norm:
-            raise NotImplementedError(
-                "only the stable-LN xls-r wav2vec2 layout is ported; the "
-                "group-norm/HuBERT layout is ROADMAP.md Queue 1 item 12")
-        if cfg.use_flash_attention:
-            raise NotImplementedError(
-                "the flash-attention kernel is not ported yet "
-                "(ROADMAP.md Queue 2, ops/attention.py)")
+        if cfg.feat_extract_norm not in ("layer", "group"):
+            raise ValueError(f"feat_extract_norm {cfg.feat_extract_norm!r}: "
+                             "expected 'layer' or 'group'")
         self.cfg = cfg
         eps = cfg.layer_norm_eps
         in_chs = (1,) + tuple(cfg.conv_dim[:-1])
         self.feature_extractor = nn.ModuleList(
-            _ConvLayer(o, i, k, cfg.conv_bias, eps)
-            for o, i, k in zip(cfg.conv_dim, in_chs, cfg.conv_kernel))
+            _ConvLayer(o, i, k, cfg.conv_bias, eps,
+                       norm=cfg.feat_extract_norm == "layer" or n == 0)
+            for n, (o, i, k) in enumerate(zip(cfg.conv_dim, in_chs, cfg.conv_kernel)))
         self.feature_projection = _FeatureProjection(cfg.conv_dim[-1], cfg.hidden_size, eps)
         self.encoder = _Encoder(cfg)
 
@@ -133,11 +140,20 @@ class Wav2VecEncoder(nn.Module):
         return self
 
     def extract_features(self, audio: torch.Tensor) -> torch.Tensor:
-        """(B, T_samples) -> (B, T_frames, conv_dim): conv -> channel LN -> erf-GELU."""
+        """(B, T_samples) -> (B, T_frames, conv_dim): each conv, its norm
+        (a channel LayerNorm in "layer" mode; in "group" mode, on conv0 only,
+        per-channel normalisation over time with biased variance), erf-GELU."""
+        cfg = self.cfg
         x = audio[:, None, :]
-        for layer, stride in zip(self.feature_extractor, self.cfg.conv_stride):
+        for layer, stride in zip(self.feature_extractor, cfg.conv_stride):
             x = conv1d(x, layer.conv.w, layer.conv.b, stride=stride)
-            x = layer.norm(x.transpose(1, 2)).transpose(1, 2)
+            if cfg.feat_extract_norm == "layer":
+                x = layer.norm(x.transpose(1, 2)).transpose(1, 2)
+            elif layer.norm is not None:
+                mean = x.mean(dim=-1, keepdim=True)
+                var = (x - mean).square().mean(dim=-1, keepdim=True)
+                x = (x - mean) / torch.sqrt(var + cfg.layer_norm_eps)
+                x = x * layer.norm.scale[:, None] + layer.norm.bias[:, None]
             x = tnn.gelu_erf(x)
         return x.transpose(1, 2)
 
@@ -157,29 +173,39 @@ class Wav2VecEncoder(nn.Module):
         return pack_encoder_weights(self.encoder.layers, dtype=dtype)
 
     def encode(self, features: torch.Tensor, fused_pack: dict | None = None) -> torch.Tensor:
-        """Feature projection + pre-LN transformer encoder + final LN."""
+        """Feature projection + transformer encoder: pre-LN layers and the
+        final LN after them (stable layout), or the encoder LN first and
+        post-LN layers (base/HuBERT layout)."""
         cfg = self.cfg
         num_heads = cfg.num_attention_heads
+        stable = cfg.do_stable_layer_norm
         fp = self.feature_projection
         x = fp.proj(fp.norm(features))
         x = x + self._pos_conv_embed(x)
-        if fused_pack is not None and (x.shape[0] == 1 or pack_batched_ok(fused_pack)):
+        if not stable:
+            x = self.encoder.final_norm(x)
+        if (fused_pack is not None and stable
+                and (x.shape[0] == 1 or pack_batched_ok(fused_pack))):
             x = encoder_block_stack(x.float(), fused_pack, num_heads=num_heads,
                                     eps=cfg.layer_norm_eps)
             return self.encoder.final_norm(x)
         lay = self.encoder.layers
+        attend = flash_attention if cfg.use_flash_attention else tnn.sdpa
         # one (d, 3d) q/k/v matmul per layer, as the JAX XLA path fuses them
         w_qkv = torch.cat([lay.q.w, lay.k.w, lay.v.w], dim=-1)
         b_qkv = torch.cat([lay.q.b, lay.k.b, lay.v.b], dim=-1)
         for i in range(cfg.num_hidden_layers):
-            y = lay.norm1(x, i)
+            y = lay.norm1(x, i) if stable else x
             qkv = torch.matmul(y, w_qkv[i]) + b_qkv[i]
             q, k, v = (tnn.split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-            attn = tnn.merge_heads(tnn.sdpa(q, k, v, scale=q.shape[-1] ** -0.5))
-            x = x + lay.out(attn, i)
-            y = lay.norm2(x, i)
-            x = x + lay.fc2(tnn.gelu_erf(lay.fc1(y, i)), i)
-        return self.encoder.final_norm(x)
+            attn = lay.out(tnn.merge_heads(attend(q, k, v, scale=q.shape[-1] ** -0.5)), i)
+            if stable:
+                x = x + attn
+                x = x + lay.fc2(tnn.gelu_erf(lay.fc1(lay.norm2(x, i), i)), i)
+            else:
+                x = lay.norm1(x + attn, i)
+                x = lay.norm2(x + lay.fc2(tnn.gelu_erf(lay.fc1(x, i)), i), i)
+        return self.encoder.final_norm(x) if stable else x
 
     def forward(self, audio: torch.Tensor, fused_pack: dict | None = None) -> torch.Tensor:
         """Full forward: z-norm -> convs -> encoder. (B, T) -> (B, frames, d)."""

@@ -48,8 +48,9 @@ def gagavatar_from_flat(flat: Dict[str, np.ndarray]) -> torch.nn.Module:
 
 def load_flat_into(model: torch.nn.Module, flat: Dict[str, np.ndarray]) -> torch.nn.Module:
     """Load flat ``//``-keyed JAX parameters into any of the port's modules
-    (e.g. a ``BitwiseVAE`` with the JAX ``BitwiseVAE.init`` tree), checking
-    every key and shape as ``params_from_flat`` does. Returns ``model``."""
+    (e.g. a ``BitwiseVAE`` with the JAX ``BitwiseVAE.init`` tree, a
+    ``HubertEncoder`` or ``MimiEncoder`` with theirs), checking every key and
+    shape as ``params_from_flat`` does. Returns ``model``."""
     state = {}
     for key, ref in model.state_dict().items():
         flat_key = key.replace(".", SEP)

@@ -2,13 +2,14 @@
 """GPU smoke run of artalk_tpu_torch: builds the CUDA kernels, checks each
 against its plain version, replays the seed-0 goldens, and drives the
 speech -> mesh-video path at the production width in every precision mode,
-StreamPool, and the speech -> gaussian-splat avatar (GAGAvatar) path.
+StreamPool, the speech -> gaussian-splat avatar (GAGAvatar) path, and the
+alternate audio encoders (flash-attention wav2vec2, HuBERT, Mimi).
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
 Phases (any failure raises and exits non-zero; no phase catches its own):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the four kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
+  2. build the five kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
      once) and print the seconds and nvcc's register / shared-memory report;
   3. kernel vs plain version on the synthetic FLAME head at 512x512, 4 frames:
      face ids agree on >= 99.9 % of pixels, background exactly, zbuf to
@@ -72,7 +73,42 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      splat kernel, its plain version, the prepass, the SR and the whole frame,
      and the kernel's bound (the larger of bytes over 3.35 TB/s and the
      alpha evaluations and composites the pixels need before they stop over
-     67 TFLOP/s fp32).
+     67 TFLOP/s fp32);
+ 14. flash-attention kernel vs flash_attention_plain, float32 and bf16, at
+     the wav2vec (1, 16, 199, 64) and HuBERT (1, 12, 199, 64) sites, on
+     tests/test_attention.py's bias and padding cases, a wholly masked row
+     (0, not NaN) and the (1, 16, 4096, 64) sweep: float32 within
+     FLASH_F32_TOL, bf16 within 1 bf16 ulp of the largest value; two faults
+     planted in a plain copy of the kernel's tile loop (the online rescale
+     alpha dropped; the ragged tile's key mask dropped) must break the
+     float32 limit; gradients through the kernel's autograd path against
+     the plain version's within 3e-5;
+ 15. the flash wav2vec2 path at full width (Wav2VecConfig(use_flash_attention=
+     True), otherwise the production config), per FLASH_MODES (exact, fast,
+     ARTALK_AR_FUSED=1) on phase 5's audio: inference -> (250, 106) finite,
+     stream equals offline to 1e-4, rendering(shape_id="mesh") -> 250 frames
+     (exact and fast), the flash kernel launched 24 times per window (once per
+     layer) and 0 times in the fused mode, whose encoder block stack takes
+     the layers; window-0 code bits agreeing with phase 5's on
+     FLASH_BITS_AGREE;
+ 16. HuBERT (hubert_base_config: 12 x 768, 12 heads, post-LN) at full width on
+     the first window of phase 5's audio, with and without frame_num, flash on
+     and off on the same weights: 12 flash launches per call with it, 0
+     without, the two within HUBERT_FLASH_TOL;
+ 17. the Mimi path at full width (ARConfig(audio_encoder="mimi"), the default
+     MimiEncoderConfig) per MIMI_MODES (exact, int8): inference finite, stream
+     equals offline to 1e-4, 5 AR launches per window in int8 and no encoder
+     or flash launch; window 0's RVQ codes on the card agree with the same
+     weights run on the CPU on MIMI_CODES_AGREE, and the first code that
+     differs in each frame's residual chain is a near tie (its distance gap
+     under MIMI_TIE of the distance);
+ 18. flash-attention times by CUDA events at both sites and over
+     tools/bench_flash_attention.py's sweep (B 1, H 16, hd 64, 256 ... 4096):
+     the wrapper, the kernel alone, the plain version and the library
+     yardstick torch.nn.functional.scaled_dot_product_attention (TF32 off;
+     the backend its dispatcher picks), and the bound (the larger of
+     q, k, v and out over 3.35 TB/s and the two products' FLOPs over 67
+     TFLOP/s fp32, q.k^T at 989 TFLOP/s for bf16 inputs).
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -80,6 +116,8 @@ kernels' numbers; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -96,8 +134,11 @@ from artalk_tpu_torch.engine import ARTAvatarInferEngine
 from artalk_tpu_torch.models.flame import FlameModel
 from artalk_tpu_torch.models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS
 from artalk_tpu_torch.models.gagavatar.generators import transform_emoca_to_p3d
+from artalk_tpu_torch.models import mimi as tmimi
+from artalk_tpu_torch.models.hubert import HubertEncoder
 from artalk_tpu_torch.models.renderer import MeshRenderer
 from artalk_tpu_torch.ops import ar_block_stack as ar_stack
+from artalk_tpu_torch.ops import attention
 from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
 from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
@@ -159,6 +200,29 @@ GAGA_FAST_LSB = {"max": 4, "mean": 0.5}
 SPLAT_EVAL_FLOP = 14
 SPLAT_COMPOSITE_FLOP = 67
 
+# flash attention vs flash_attention_plain: float32 within tests/test_attention.py's
+# atol (both compute in float32; the sums run in another order), bf16 within
+# 1 bf16 ulp of the largest value (a float32 result rounded once on each side)
+FLASH_F32_TOL = 2e-5
+FLASH_TILE = 64      # keys per tile of csrc/flash_attention.cu at hd <= 64
+FLASH_SWEEP = (256, 512, 1024, 2048, 4096)   # tools/bench_flash_attention.py's lengths
+FLASH_MODES = {"exact": {}, "fast": {"ARTALK_AR_PRECISION": "fast"},
+               "fused": {"ARTALK_AR_FUSED": "1"}}
+# least share of the flash path's window-0 code bits agreeing with phase 5's
+# exact bits: float32 paths differ from it at rounding level only (as phase
+# 8's fused mode), fast rounds to bf16 (as phase 8's fast mode)
+FLASH_BITS_AGREE = {"exact": 0.999, "fast": 0.9, "fused": 0.999}
+# HuBERT with the flash kernel vs the plain softmax, max abs difference of the
+# post-LN outputs (float32; unit-scale after every LayerNorm)
+HUBERT_FLASH_TOL = 1e-4
+MIMI_MODES = {"exact": {}, "int8": {"ARTALK_AR_PRECISION": "int8"}}
+# Mimi codes on the card vs the CPU: a flip in a frame's residual chain
+# changes the residual of every later stage, so the share counts whole
+# chains; each chain's first flip must be a near tie, its squared-distance
+# gap under MIMI_TIE of the distance (float32 on both sides)
+MIMI_CODES_AGREE = 0.9
+MIMI_TIE = 1e-4
+
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
     ar=tcfg.ARConfig(depth=3, num_heads=4, prev_ratio=1, embed_dim=64, style_dim=16,
@@ -199,19 +263,25 @@ def phase_device() -> str:
 def zero_launches() -> None:
     """Set every kernel's launch count to 0."""
     rasterizer.LAUNCHES = ar_stack.LAUNCHES = enc_stack.LAUNCHES = gsplat.LAUNCHES = 0
+    attention.LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    """The decode-path kernels' launch counts."""
+    return {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES, "flash": attention.LAUNCHES}
 
 
 def phase_build() -> None:
-    """All four libraries at once: nvcc runs in a subprocess each."""
+    """All five libraries at once: nvcc runs in a subprocess each."""
     t0 = time.perf_counter()
-    mods = (rasterizer, ar_stack, enc_stack, gsplat)
+    mods = (rasterizer, ar_stack, enc_stack, gsplat, attention)
     with ThreadPoolExecutor(len(mods)) as pool:
         seconds = list(pool.map(lambda m: m.build(), mods))
     for mod, sec in zip(mods, seconds):
         print(f"[build] {os.path.relpath(mod.SOURCE, ROOT)}: {sec:.2f} s")
         for line in getattr(mod, "BUILD_REPORT", "").splitlines()[:2]:
             print(f"[build]   {line.strip()}")
-    print(f"[build] all four in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all five in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
@@ -333,64 +403,50 @@ def rendered_frames(path: str):
     return None
 
 
-def phase_full(dev: torch.device, image: int = IMAGE):
+def render_mesh(engine: ARTAvatarInferEngine, audio: np.ndarray, motions: np.ndarray,
+                save_name: str):
+    """rendering(shape_id="mesh") of ``motions``, every launch count set to 0
+    just before it: 250 frames, at least 250 rasterizer launches and no
+    other kernel's. Returns the path, the frame count (None for an encoded
+    video), the rasterizer launches and the ms per frame."""
+    zero_launches()
+    t0 = time.perf_counter()
+    out_path = engine.rendering(audio, motions, shape_id="mesh", save_name=save_name)
+    ms_frame = (time.perf_counter() - t0) * 1e3 / len(motions)
+    launches, n_frames = rasterizer.LAUNCHES, rendered_frames(out_path)
+    if n_frames not in (None, 250) or launches < 250:
+        raise AssertionError(f"[{save_name}] rendered {n_frames} frames with {launches} "
+                             "rasterizer launches, want 250 and >= 250")
+    if any(launch_counts().values()) or gsplat.LAUNCHES:
+        raise AssertionError(f"[{save_name}] the mesh render launched {launch_counts()}, "
+                             f"{gsplat.LAUNCHES} splats")
+    return out_path, n_frames, launches, ms_frame
+
+
+def phase_full(dev: torch.device):
     """The production-width path through the engine's entry points. Returns
     the rasterizer launches counted during it, the first window's code bits,
     the ms per window of inference, the audio and its motions."""
-    out_dir = os.path.join(ROOT, "render_results", "chip_smoke")
-    engine = ARTAvatarInferEngine(device=dev, config=tcfg.ModelConfig(),
-                                  assets_dir=os.path.join(ROOT, "assets"),
-                                  output_dir=out_dir, image_size=image, seed=0)
-    cfg = engine.cfg
+    engine = build_engine(dev, {}, tcfg.ModelConfig())
     n_params = sum(p.numel() for p in engine.model.parameters())
-    audio = noise_audio(cfg.sample_rate)
-    ws = engine.model.window_samples
-    n_windows = math.ceil(len(audio) / ws)
-    engine.inference(audio[:ws])  # warm-up: cuBLAS/cuDNN handles and autotuning
-
-    zero_launches()
-    t0 = time.perf_counter()
-    motions = engine.inference(audio)
-    t_inf = time.perf_counter() - t0
-    streamed = np.concatenate(list(engine.stream(
-        audio[i : i + ws] for i in range(0, len(audio), ws))), axis=0)
-    t0 = time.perf_counter()
-    out_path = engine.rendering(audio, motions, shape_id="mesh", save_name="chip_smoke")
-    t_render = time.perf_counter() - t0
-    launches = rasterizer.LAUNCHES
-    if ar_stack.LAUNCHES or enc_stack.LAUNCHES or gsplat.LAUNCHES:
-        raise AssertionError("the exact mesh path launched a block-stack or splat kernel")
-
-    if motions.shape != (250, 106) or not np.isfinite(motions).all():
-        raise AssertionError(f"inference gave {motions.shape}, finite={np.isfinite(motions).all()}")
-    padded = np.zeros(n_windows * ws, np.float32)
-    padded[: len(audio)] = audio
-    offline = engine.model.generate(
-        torch.from_numpy(padded.reshape(n_windows, 1, ws)).to(dev),
-        engine.model.encode_style(None))[0, :250].cpu().numpy()
-    stream_err = float(np.abs(streamed - offline).max())
-    if streamed.shape != offline.shape or stream_err > 1e-4:
-        raise AssertionError(f"stream vs offline: {streamed.shape} vs {offline.shape}, "
-                             f"max abs err {stream_err:.3g}")
-    n_frames = rendered_frames(out_path)
-    if n_frames not in (None, 250):
-        raise AssertionError(f"rendered {n_frames} frames, want 250")
-    if launches < 250:
-        raise AssertionError(f"rasterizer kernel launched {launches} times, want >= 250")
-
+    audio = noise_audio(engine.cfg.sample_rate)
+    run = drive(engine, audio, "full")
+    check_launches("full", run, {"ar": 0, "encoder": 0, "flash": 0})
+    motions = run["motions"]
+    out_path, n_frames, launches, render_ms = render_mesh(engine, audio, motions, "chip_smoke")
     verts = engine.flame.motion_to_verts(torch.zeros(250, 300, device=dev),
                                          torch.from_numpy(motions).to(dev))
     t0 = time.perf_counter()
     engine.mesh_renderer.render_frames(verts)  # returns on the host
     t_frames = time.perf_counter() - t0
     print(f"[full] production config, {n_params / 1e6:.1f} M params (random, seed 0), "
-          f"{len(audio) / cfg.sample_rate:.0f} s audio, {n_windows} windows")
-    print(f"[full] inference {t_inf * 1e3 / n_windows:.1f} ms/window; stream vs offline "
-          f"max abs err {stream_err:.3g}; rendering (flame + frames + video write) "
-          f"{t_render * 1e3 / 250:.2f} ms/frame; render_frames alone "
-          f"{t_frames * 1e3 / 250:.2f} ms/frame; {launches} kernel launches")
+          f"{len(audio) / engine.cfg.sample_rate:.0f} s audio, {run['n_windows']} windows")
+    print(f"[full] inference {run['ms_window']:.1f} ms/window; stream vs offline max abs err "
+          f"{run['stream_err']:.3g}; rendering (flame + frames + video write) {render_ms:.2f} "
+          f"ms/frame; render_frames alone {t_frames * 1e3 / 250:.2f} ms/frame; {launches} "
+          "kernel launches")
     print(f"[full] wrote {out_path} ({n_frames if n_frames is not None else 'encoded'} frames)")
-    return launches, window0_bits(engine, audio), t_inf * 1e3 / n_windows, audio, motions
+    return launches, window0_bits(engine, audio), run["ms_window"], audio, motions
 
 
 def ar_inputs(model, b: int, level: int, cache_dtype: torch.dtype, seed: int):
@@ -610,53 +666,76 @@ def with_env(env: dict, fn):
                 os.environ[k] = saved[k]
 
 
-def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
-    """One precision mode at full width through the engine's entry points.
-    Returns the engine and the mode's numbers."""
-    engine = with_env(MODES[mode], lambda: ARTAvatarInferEngine(
-        device=dev, config=tcfg.ModelConfig(), assets_dir=os.path.join(ROOT, "assets"),
+def build_engine(dev: torch.device, env: dict, config: tcfg.ModelConfig,
+                 **kwargs) -> ARTAvatarInferEngine:
+    """An engine on ``dev`` with random seed-0 weights, the precision
+    switches set to ``env`` while it is built."""
+    return with_env(env, lambda: ARTAvatarInferEngine(
+        device=dev, config=config, assets_dir=os.path.join(ROOT, "assets"),
         output_dir=os.path.join(ROOT, "render_results", "chip_smoke"), image_size=IMAGE,
-        seed=0))
-    cfg = engine.cfg
-    audio = noise_audio(cfg.sample_rate)
+        seed=0, **kwargs))
+
+
+def drive(engine: ARTAvatarInferEngine, audio: np.ndarray, tag: str) -> dict:
+    """``inference`` of ``audio`` and ``stream`` of its 4 s chunks through the
+    engine's entry points, each with the launch counts set to 0 just before
+    and read just after it; the stream must equal the offline decode to
+    1e-4. Returns the motions, ms per window and both runs' launches."""
+    dev = engine.device
     ws = engine.model.window_samples
     n_windows = math.ceil(len(audio) / ws)
-    engine.inference(audio[:ws])  # warm-up
-
+    engine.inference(audio[:ws])  # warm-up: cuBLAS/cuDNN handles and autotuning
     zero_launches()
     t0 = time.perf_counter()
     motions = engine.inference(audio)
     ms_window = (time.perf_counter() - t0) * 1e3 / n_windows
-    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    launches = launch_counts()
+    zero_launches()
     streamed = np.concatenate(list(engine.stream(
         audio[i : i + ws] for i in range(0, len(audio), ws))), axis=0)
-    stream_launches = {"ar": ar_stack.LAUNCHES - launches["ar"],
-                       "encoder": enc_stack.LAUNCHES - launches["encoder"]}
-
+    stream_launches = launch_counts()
     if motions.shape != (250, 106) or not np.isfinite(motions).all():
-        raise AssertionError(f"[{mode}] inference gave {motions.shape}")
+        raise AssertionError(f"[{tag}] inference gave {motions.shape}, "
+                             f"finite={np.isfinite(motions).all()}")
     padded = np.zeros(n_windows * ws, np.float32)
     padded[: len(audio)] = audio
     offline = engine.model.generate(
         torch.from_numpy(padded.reshape(n_windows, 1, ws)).to(dev),
         engine.model.encode_style(None))[0, :250].cpu().numpy()
     stream_err = float(np.abs(streamed - offline).max())
-    if stream_err > 1e-4:
-        raise AssertionError(f"[{mode}] stream vs offline max abs err {stream_err:.3g}")
-    fused = cfg.fused_ar
+    if streamed.shape != offline.shape or stream_err > 1e-4:
+        raise AssertionError(f"[{tag}] stream vs offline: {streamed.shape} vs {offline.shape}, "
+                             f"max abs err {stream_err:.3g}")
+    return {"motions": motions, "ms_window": ms_window, "launches": launches,
+            "stream_launches": stream_launches, "stream_err": stream_err,
+            "n_windows": n_windows}
+
+
+def check_launches(tag: str, run: dict, want: dict) -> None:
+    if run["launches"] != want or run["stream_launches"] != want:
+        raise AssertionError(f"[{tag}] launches {run['launches']} / stream "
+                             f"{run['stream_launches']}, want {want} each")
+
+
+def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
+    """One precision mode at full width through the engine's entry points.
+    Returns the engine and the mode's numbers."""
+    engine = build_engine(dev, MODES[mode], tcfg.ModelConfig())
+    audio = noise_audio(engine.cfg.sample_rate)
+    run = drive(engine, audio, mode)
+    fused, n = engine.cfg.fused_ar, run["n_windows"]
     levels = len(engine.model.patch_nums)
-    want = {"ar": levels * n_windows if fused else 0, "encoder": n_windows if fused else 0}
-    if launches != want or stream_launches != want:
-        raise AssertionError(f"[{mode}] launches {launches} / stream {stream_launches}, "
-                             f"want {want} each")
+    check_launches(mode, run, {"ar": levels * n if fused else 0, "encoder": n if fused else 0,
+                               "flash": 0})
     agree = float((window0_bits(engine, audio) == exact_bits).mean())
-    print(f"[mode {mode}] inference {ms_window:.2f} ms/window; stream vs offline max abs err "
-          f"{stream_err:.3g}; launches per {n_windows} windows: inference {launches}, "
-          f"stream {stream_launches}; window-0 code bits agreeing with exact {agree:.4f}")
+    print(f"[mode {mode}] inference {run['ms_window']:.2f} ms/window; stream vs offline max abs "
+          f"err {run['stream_err']:.3g}; launches per {n} windows: inference "
+          f"{run['launches']}, stream {run['stream_launches']}; window-0 code bits agreeing "
+          f"with exact {agree:.4f}")
     floor = 0.999 if mode == "fused" else 0.9
     if agree < floor:
         raise AssertionError(f"[{mode}] only {agree:.4f} of the code bits agree with exact")
-    return engine, {"ms_window": ms_window, "launches": launches, "agree": agree}
+    return engine, {"ms_window": run["ms_window"], "launches": run["launches"], "agree": agree}
 
 
 class DecodedBits:
@@ -879,11 +958,8 @@ def phase_gaga(mode: str, dev: torch.device, audio: np.ndarray, motions: np.ndar
     engine's entry points (inference of ``audio`` and rendering), then
     ``motions`` (phase 5's) rendered in one call and in two halves. Returns
     the engine, the one-call frames and the numbers."""
-    engine = with_env({"ARTALK_GAGA_PRECISION": mode}, lambda: ARTAvatarInferEngine(
-        load_gaga=True, device=dev, config=tcfg.ModelConfig(),
-        assets_dir=os.path.join(ROOT, "assets"),
-        output_dir=os.path.join(ROOT, "render_results", "chip_smoke"), image_size=IMAGE,
-        seed=0))
+    engine = build_engine(dev, {"ARTALK_GAGA_PRECISION": mode}, tcfg.ModelConfig(),
+                          load_gaga=True)
     gaga = engine.gagavatar
     if gaga.bf16 != (mode == "fast"):
         raise AssertionError(f"[gaga {mode}] bf16 SR and colors {gaga.bf16}")
@@ -1138,6 +1214,315 @@ def phase_gaga_all(dev: torch.device, audio: np.ndarray, motions: np.ndarray) ->
             for mode, colors in GAGA_MODES.items()}
 
 
+def flash_inputs(b: int, h: int, lq: int, lk: int, hd: int, dev: torch.device,
+                 dtype: torch.dtype = torch.float32, seed: int = 0) -> list:
+    """Seeded standard-normal q (B, H, Lq, hd), k and v (B, H, Lk, hd)."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev, dtype)
+            for shape in ((b, h, lq, hd), (b, h, lk, hd), (b, h, lk, hd))]
+
+
+def flash_cases(dev: torch.device):
+    """(name, q, k, v, bias, scale) in float32: both model sites,
+    tests/test_attention.py's bias and padding cases, a wholly masked row
+    and the longest sweep length."""
+    lvl = torch.tensor([0, 1, 1, 2, 2, 2, 3, 3])
+    var = torch.cat([torch.zeros(8, 8), torch.where(lvl[:, None] >= lvl[None], 0.0,
+                                                    float("-inf"))], dim=1)[None, None]
+    masked = torch.zeros((1, 1, 20, 70))
+    masked[..., 3, :] = float("-inf")
+    yield "wav2vec (1,16,199,64)", *flash_inputs(1, 16, 199, 199, 64, dev), None, 0.125
+    yield "hubert (1,12,199,64)", *flash_inputs(1, 12, 199, 199, 64, dev, seed=1), None, 0.125
+    yield "no bias (2,3,181,362,64)", *flash_inputs(2, 3, 181, 362, 64, dev, seed=2), None, 0.125
+    yield "VAR mask (2,3,8,16,64)", *flash_inputs(2, 3, 8, 16, 64, dev, seed=3), var.to(dev), 1.0
+    for i, (lq, lk) in enumerate(((100, 100), (181, 362), (57, 300))):
+        yield (f"padding {lq}/{lk}", *flash_inputs(1, 2, lq, lk, 64, dev, seed=4 + i), None,
+               0.2)
+    yield "long (1,1,256,640,32)", *flash_inputs(1, 1, 256, 640, 32, dev, seed=7), None, 0.1
+    yield ("masked row (1,2,20,70,64)", *flash_inputs(1, 2, 20, 70, 64, dev, seed=8),
+           masked.to(dev), 0.125)
+    yield "sweep (1,16,4096,64)", *flash_inputs(1, 16, 4096, 4096, 64, dev, seed=9), None, 0.125
+
+
+def tiled_flash(q, k, v, bias, scale: float, rescale: bool = True,
+                mask_tail: bool = True) -> torch.Tensor:
+    """The kernel's tile loop in plain torch (FLASH_TILE keys a tile, the
+    running max from -1e30), so that faults can be planted in it:
+    ``rescale=False`` drops the online rescale alpha, ``mask_tail=False``
+    lets the ragged last tile's missing keys (zero k and v) into the
+    softmax."""
+    lk = k.shape[2]
+    pad = -lk % FLASH_TILE
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    s = torch.matmul(q.float() * scale, kf.transpose(-1, -2))
+    if bias is not None:
+        s[..., :lk] += bias
+    if mask_tail:
+        s[..., lk:] = float("-inf")
+    m = torch.full(s.shape[:-1] + (1,), attention.NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, device=q.device)
+    for t in range(0, lk + pad, FLASH_TILE):
+        st = s[..., t:t + FLASH_TILE]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        alpha = torch.exp(m - m_new) if rescale else torch.ones_like(m)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, vf[..., t:t + FLASH_TILE, :])
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).to(q.dtype)
+
+
+def phase_flash_kernel(dev: torch.device) -> dict:
+    """The flash kernel against its plain version on every case, float32 and
+    bf16; planted faults; gradients. Returns the max abs error per dtype."""
+    errs = {"f32": 0.0, "bf16": 0.0}
+    for name, q, k, v, bias, scale in flash_cases(dev):
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = attention.flash_attention(qd, kd, vd, bias, scale=scale)
+            want = attention.flash_attention_plain(qd, kd, vd, bias, scale=scale)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got).all() or got.dtype != dtype or got.shape != q.shape:
+                raise AssertionError(f"[flash] {name} {tag}: {got.dtype} {tuple(got.shape)}, "
+                                     f"finite={bool(torch.isfinite(got).all())}")
+            if bias is not None and torch.isinf(bias).all(dim=-1).any():
+                rows = torch.isinf(bias).all(dim=-1).expand(got.shape[:-1])
+                if got[rows].abs().max().item() != 0.0:
+                    raise AssertionError(f"[flash] {name} {tag}: a wholly masked row is not 0")
+            if tag == "f32":
+                ok, shown = err <= FLASH_F32_TOL, f"max abs err {err:.3g}"
+            else:
+                ulps = bf16_ulps_of_max(got, want)
+                ok, shown = ulps <= 1.0, f"max abs err {err:.3g} = {ulps:.3g} bf16 ulps"
+            print(f"[flash] {name} {tag}: {shown}")
+            if not ok:
+                raise AssertionError(f"[flash] {name} {tag} off the plain version: {shown}")
+            errs[tag] = max(errs[tag], err)
+    q, k, v = flash_inputs(1, 16, 199, 199, 64, dev)
+    want = attention.flash_attention_plain(q, k, v, scale=0.125)
+    tiled = (tiled_flash(q, k, v, None, 0.125) - want).abs().max().item()
+    faults = {"alpha dropped": tiled_flash(q, k, v, None, 0.125, rescale=False),
+              "tail mask dropped": tiled_flash(q, k, v, None, 0.125, mask_tail=False)}
+    fault_err = {f: (bad - want).abs().max().item() for f, bad in faults.items()}
+    print(f"[flash] wav2vec site f32, the tile loop in plain torch: {tiled:.3g} (limit "
+          f"{FLASH_F32_TOL}); planted faults: "
+          + ", ".join(f"{f} {e:.3g}" for f, e in fault_err.items()))
+    if tiled > FLASH_F32_TOL or min(fault_err.values()) <= FLASH_F32_TOL:
+        raise AssertionError(f"[flash] the limit does not separate the planted faults: "
+                             f"{tiled:.3g}, {fault_err}")
+    g = torch.Generator().manual_seed(10)
+    arrays = [torch.randn(shape, generator=g) for shape in
+              ((1, 2, 32, 16), (1, 2, 48, 16), (1, 2, 48, 16), (1, 1, 32, 48))]
+    arrays += flash_inputs(1, 16, 199, 199, 64, torch.device("cpu"), seed=11) + [None]
+    grad_err = 0.0
+    for args in (arrays[:4], arrays[4:]):
+        grads = []
+        for fn in (attention.flash_attention, attention.flash_attention_plain):
+            leaves = [None if a is None else a.to(dev).requires_grad_() for a in args]
+            o = fn(*leaves[:3], leaves[3], scale=0.25)
+            (o * torch.cos(o)).sum().backward()
+            grads.append([t.grad for t in leaves if t is not None])
+        for gk, gp in zip(*grads):
+            if gk.shape != gp.shape:
+                raise AssertionError(f"[flash] gradient shape {gk.shape} vs {gp.shape}")
+            grad_err = max(grad_err, (gk - gp).abs().max().item())
+    print(f"[flash] gradients (q, k, v, bias) vs the plain version: max abs err {grad_err:.3g} "
+          "(limit 3e-5)")
+    if grad_err > 3e-5:
+        raise AssertionError(f"[flash] gradients off by {grad_err:.3g}")
+    return errs
+
+
+def phase_flash_path(mode: str, dev: torch.device, exact_bits: np.ndarray,
+                     audio: np.ndarray) -> dict:
+    """The flash wav2vec2 path at full width in one mode through the engine's
+    entry points."""
+    config = tcfg.ModelConfig(wav2vec=tcfg.Wav2VecConfig(use_flash_attention=True))
+    engine = build_engine(dev, FLASH_MODES[mode], config)
+    run = drive(engine, audio, f"flash {mode}")
+    fused, n = engine.cfg.fused_ar, run["n_windows"]
+    layers, levels = config.wav2vec.num_hidden_layers, len(engine.model.patch_nums)
+    check_launches(f"flash {mode}", run, {"ar": levels * n if fused else 0,
+                                          "encoder": n if fused else 0,
+                                          "flash": 0 if fused else layers * n})
+    frames = None
+    if not fused:
+        frames = render_mesh(engine, audio, run["motions"], f"chip_smoke_flash_{mode}")[1]
+    agree = float((window0_bits(engine, audio) == exact_bits).mean())
+    print(f"[flash {mode}] inference {run['ms_window']:.2f} ms/window; stream vs offline max "
+          f"abs err {run['stream_err']:.3g}; launches per {n} windows: inference "
+          f"{run['launches']}, stream {run['stream_launches']}; rendered "
+          f"{frames if frames is not None else ('encoded' if not fused else 'not rendered')} "
+          f"frames; window-0 code bits agreeing with phase 5's exact {agree:.4f} (limit "
+          f"{FLASH_BITS_AGREE[mode]})")
+    if agree < FLASH_BITS_AGREE[mode]:
+        raise AssertionError(f"[flash {mode}] only {agree:.4f} of the code bits agree")
+    return {"ms_window": run["ms_window"], "launches": run["launches"], "agree": agree}
+
+
+def phase_hubert(dev: torch.device, audio: np.ndarray) -> dict:
+    """HuBERT base at full width, flash off and on (same weights), with and
+    without frame_num, on the first 4 s of ``audio``."""
+    cfg = tcfg.hubert_base_config()
+    plain = HubertEncoder(cfg).init(torch.Generator().manual_seed(0)).requires_grad_(False)
+    flash = HubertEncoder(dataclasses.replace(cfg, use_flash_attention=True))
+    flash.load_state_dict(plain.state_dict())
+    plain, flash = plain.to(dev), flash.requires_grad_(False).to(dev)
+    x = torch.from_numpy(audio[None, :64000]).to(dev)
+    out = {}
+    for frame_num in (None, 100):
+        zero_launches()
+        got = flash(x, frame_num)
+        torch.cuda.synchronize()
+        launches = attention.LAUNCHES
+        want = plain(x, frame_num)
+        torch.cuda.synchronize()
+        plain_launches = attention.LAUNCHES - launches
+        frames = frame_num or cfg.num_output_frames(64000)
+        diff = (got - want).abs().max().item()
+        print(f"[hubert] frame_num {frame_num}: out {tuple(got.shape)}, flash launches "
+              f"{launches} (plain softmax {plain_launches}), flash vs plain softmax max abs "
+              f"diff {diff:.3g} (limit {HUBERT_FLASH_TOL})")
+        if got.shape != (1, frames, cfg.hidden_size) or not torch.isfinite(got).all():
+            raise AssertionError(f"[hubert] output {tuple(got.shape)}")
+        if launches != cfg.num_hidden_layers or plain_launches:
+            raise AssertionError(f"[hubert] {launches} flash launches, want "
+                                 f"{cfg.num_hidden_layers}; plain softmax {plain_launches}")
+        if diff > HUBERT_FLASH_TOL:
+            raise AssertionError(f"[hubert] flash vs plain softmax {diff:.3g}")
+        ms = {"flash": cuda_ms(lambda: flash(x, frame_num), 5),
+              "plain": cuda_ms(lambda: plain(x, frame_num), 5)}
+        print(f"[hubert] frame_num {frame_num}: ms per call flash {ms['flash']:.3f}, plain "
+              f"softmax {ms['plain']:.3f}")
+        out[frame_num] = {"launches": launches, "diff": diff, **ms}
+    return out
+
+
+def rvq_first_flip_gaps(enc, audio_24k: torch.Tensor, card_codes: torch.Tensor) -> list:
+    """Walk ``enc``'s residual quantizers (on the CPU) and, in each frame's
+    residual chain, at the first stage whose CPU code differs from
+    ``card_codes``: the gap between the squared distances of the two codes,
+    over the CPU code's distance."""
+    cfg = enc.cfg
+    emb = enc.seanet_encode(audio_24k)
+    emb = enc.transform(emb.transpose(1, 2)).transpose(1, 2)
+    emb = tmimi._causal_conv(enc.downsample, emb, stride=2, pad_mode="replicate")
+    gaps, ns = [], cfg.num_semantic_quantizers
+    for rvq, card in ((enc.semantic_rvq, card_codes[0, :ns]), (enc.acoustic_rvq,
+                                                               card_codes[0, ns:])):
+        residual = torch.einsum("oi,bit->bto", rvq.input_proj.w[..., 0], emb)[0]
+        flipped = torch.zeros(residual.shape[0], dtype=torch.bool)
+        for stage, book in enumerate(rvq.codebooks()):
+            d2 = (residual.square().sum(-1, keepdim=True) - 2.0 * residual @ book.T
+                  + book.square().sum(-1)[None])
+            idx = torch.argmin(d2, dim=-1)
+            frames = torch.nonzero((idx != card[stage]) & ~flipped).flatten()
+            for t in frames.tolist():
+                best = d2[t, idx[t]].item()
+                gaps.append((d2[t, card[stage, t]].item() - best) / abs(best))
+            flipped |= idx != card[stage]
+            residual = residual - book[idx]
+    return gaps
+
+
+def phase_mimi(mode: str, dev: torch.device, audio: np.ndarray) -> dict:
+    """The Mimi-conditioned path at full width in one mode through the
+    engine's entry points; in exact mode also window 0's RVQ codes against
+    the same weights on the CPU."""
+    engine = build_engine(dev, MIMI_MODES[mode],
+                          tcfg.ModelConfig(ar=tcfg.ARConfig(audio_encoder="mimi")))
+    run = drive(engine, audio, f"mimi {mode}")
+    n, levels = run["n_windows"], len(engine.model.patch_nums)
+    check_launches(f"mimi {mode}", run, {"ar": levels * n if engine.cfg.fused_ar else 0,
+                                         "encoder": 0, "flash": 0})
+    enc = engine.model.audio_encoder
+    n_params = sum(p.numel() for p in enc.parameters())
+    codes = {}
+    if mode == "exact":
+        chunk = torch.from_numpy(audio[None, : engine.model.window_samples])
+        with torch.no_grad():
+            card = enc.encode_codes(tmimi.resample_16k_to_24k(chunk.to(dev))).cpu()
+            cpu_enc = copy.deepcopy(enc).cpu()
+            a24 = tmimi.resample_16k_to_24k(chunk)
+            cpu = cpu_enc.encode_codes(a24)
+            gaps = rvq_first_flip_gaps(cpu_enc, a24, card)
+        agree = float((card == cpu).float().mean())
+        codes = {"agree": agree, "gaps": gaps}
+        print(f"[mimi] window 0 codes {tuple(card.shape)}: card vs CPU agree on {agree:.4f} "
+              f"(limit {MIMI_CODES_AGREE}); first flips per residual chain: {len(gaps)}, "
+              f"distance gaps {[f'{g:.3g}' for g in gaps]} (limit {MIMI_TIE})")
+        if agree < MIMI_CODES_AGREE or any(g > MIMI_TIE for g in gaps):
+            raise AssertionError(f"[mimi] card codes off the CPU run: {agree:.4f}, {gaps}")
+        del cpu_enc
+    print(f"[mimi {mode}] encoder {n_params / 1e6:.1f} M params (random, seed 0); inference "
+          f"{run['ms_window']:.2f} ms/window; stream vs offline max abs err "
+          f"{run['stream_err']:.3g}; launches per {n} windows: inference {run['launches']}, "
+          f"stream {run['stream_launches']}")
+    return {"ms_window": run["ms_window"], "launches": run["launches"], **codes}
+
+
+def flash_bound(b: int, h: int, lq: int, lk: int, hd: int, dtype: torch.dtype):
+    """(bytes ms, operations ms) of one flash call: q, k, v read once and the
+    output written once; q.k^T and P.V at 2 FLOP per multiply-add, P.V at the
+    fp32 rate (p stays float32), q.k^T at the bf16 tensor rate for bf16
+    inputs (their products are exact in a float32 accumulate)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    moved = (2 * b * h * lq * hd + 2 * b * h * lk * hd) * size
+    half = 2 * b * h * lq * lk * hd
+    qk_rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    return moved / HBM_BYTES_PER_S * 1e3, (half / qk_rate + half / FP32_FLOP_PER_S) * 1e3
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend scaled_dot_product_attention's dispatcher picks for these
+    inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, scale=0.125)).name
+
+
+def phase_flash_times(dev: torch.device, exact_ms: float) -> dict:
+    """CUDA-event times of the flash kernel at both sites and over the
+    sweep, beside the plain version, SDPA and the bound. Returns the
+    kernels-line fields of the wav2vec site per dtype."""
+    out = {}
+    lib = attention._LIB
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        sites = [("wav2vec", 16, 199), ("hubert", 12, 199)] + [(f"sweep {n}", 16, n)
+                                                                for n in FLASH_SWEEP]
+        for site, h, n in sites:
+            q, k, v = flash_inputs(1, h, n, n, 64, dev, dtype, seed=20)
+            o = torch.empty_like(q)
+            stream = torch.cuda.current_stream().cuda_stream
+            reps = 50 if n <= 1024 else 10
+            ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale=0.125), reps)
+            alone = cuda_ms(lambda: lib.artalk_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), h, h, n, n, 64,
+                0.125, 0, 0, 0, 0, int(dtype == torch.bfloat16), stream), reps)
+            plain = cuda_ms(lambda: attention.flash_attention_plain(q, k, v, scale=0.125),
+                            max(2, reps // 5))
+            sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=0.125), reps)
+            bytes_ms, ops_ms = flash_bound(1, h, n, n, 64, dtype)
+            bound = max(bytes_ms, ops_ms)
+            print(f"[times] flash {tag} {site} (1,{h},{n},64): wrapper {ms:.5f} ms, kernel "
+                  f"alone {alone:.5f}, plain {plain:.5f}, sdpa {sdpa:.5f} "
+                  f"({sdpa_backend(q, k, v)}), bound {bound:.5f} ({bytes_ms:.5f} bytes, "
+                  f"{ops_ms:.5f} operations); the kernel alone reaches {bound / alone:.3f} "
+                  "of the bound")
+            if site == "wav2vec":
+                out[tag] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                            "library_ms": sdpa, "kernel_only_ms": alone}
+    print(f"[times] flash f32 at the wav2vec site, 24 layers: "
+          f"{24 * out['f32']['ms']:.3f} ms of a window, {24 * out['f32']['ms'] / exact_ms:.4f} "
+          f"of phase 5's exact {exact_ms:.2f} ms/window")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1171,11 +1556,28 @@ def main() -> int:
     times = phase_times(model, ar_packs, enc_packs)
     del engine, model, ar_packs, enc_packs
     splat = phase_gaga_all(dev, audio, motions)
+    torch.cuda.empty_cache()
+
+    flash_err = phase_flash_kernel(dev)
+    flash = {}
+    for mode in FLASH_MODES:
+        torch.cuda.empty_cache()
+        flash[mode] = phase_flash_path(mode, dev, exact_bits, audio)
+    hubert = phase_hubert(dev, audio)
+    mimi = {}
+    for mode in MIMI_MODES:
+        torch.cuda.empty_cache()
+        mimi[mode] = phase_mimi(mode, dev, audio)
+    flash_times = phase_flash_times(dev, exact_ms)
 
     print(f"[summary] {smi}: inference ms/window by mode "
           + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())
           + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; GAGAvatar ms/frame "
           + ", ".join(f"{m} {splat[c]['ms_frame']:.2f}" for m, c in GAGA_MODES.items())
+          + "; flash wav2vec ms/window " + ", ".join(f"{m} {v['ms_window']:.2f}"
+                                                     for m, v in flash.items())
+          + "; HuBERT ms/call flash " + ", ".join(f"{v['flash']:.2f}" for v in hubert.values())
+          + "; Mimi ms/window " + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in mimi.items())
           + f"; whole run {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": "rasterize", "route": "cuda",
                 "source": "artalk_tpu_torch/csrc/rasterizer.cu",
@@ -1198,6 +1600,12 @@ def main() -> int:
                         "source": "artalk_tpu_torch/csrc/gsplat.cu",
                         "replaces": "artalk_tpu/ops/gsplat.py:638",
                         **{k: v for k, v in splat[colors].items() if k != "ms_frame"}})
+    for tag, mode in (("f32", "exact"), ("bf16", "fast")):
+        kernels.append({"name": f"flash_attention/{tag}", "route": "cuda",
+                        "source": "artalk_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": "artalk_tpu/ops/attention.py:97",
+                        "launches": flash[mode]["launches"]["flash"],
+                        "max_abs_err": flash_err[tag], **flash_times[tag]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
-rasterizer, the AR block stack, the encoder block stack and the gaussian
-splat.
+rasterizer, the AR block stack, the encoder block stack, the gaussian splat
+and flash attention.
 
 Marked ``cuda``: skipped without an NVIDIA GPU. This file imports neither jax
 nor artalk_tpu, so it also runs on a GPU machine without them; there, skip
@@ -18,7 +18,10 @@ version composite the same instance lists in the same order, but sum in
 another order (the plain version's transmittance is a cumprod, its colors a
 matmul); a transmittance that rounds the other way at T_EPS moves the stop of
 a pixel by one gaussian, at most T_EPS times its largest color (colors in
-[0, 1] here), so they are held to 2e-4.
+[0, 1] here), so they are held to 2e-4. Flash attention sums in another
+order than the plain version's matmuls: float32 outputs are held to
+tests/test_attention.py's 2e-5 and gradients to its 3e-5; bf16 outputs, a
+float32 result rounded once on each side, to 1 bf16 ulp of the largest value.
 """
 
 import math
@@ -31,6 +34,7 @@ from artalk_tpu_torch.models import nn as tnn
 from artalk_tpu_torch.models.ar_model import _Blocks
 from artalk_tpu_torch.models.wav2vec import _Layers
 from artalk_tpu_torch.ops import ar_block_stack as tab
+from artalk_tpu_torch.ops import attention as tatt
 from artalk_tpu_torch.ops import encoder_block_stack as teb
 from artalk_tpu_torch.ops import gsplat as tgs
 from artalk_tpu_torch.ops import rasterizer as tr
@@ -227,3 +231,85 @@ def test_splat_rejects_bad_inputs(cuda):
         tgs.splat_tiles(geo, colors, inst, offsets[:-1], 128)
     with pytest.raises(ValueError, match="one device"):
         tgs.splat_tiles(geo, colors, inst.cpu(), offsets, 128)
+
+
+def _flash_cases():
+    """(q, k, v, bias, scale): the model sites, tests/test_attention.py's
+    bias and padding cases, a wholly masked row, head dims of 16, 100 and 128,
+    and a bias broadcast over heads and queries."""
+    rng = np.random.default_rng(4)
+
+    def qkv(b, h, lq, lk, hd):
+        return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                for s in ((b, h, lq, hd), (b, h, lk, hd), (b, h, lk, hd))]
+
+    lvl = np.array([0, 1, 1, 2, 2, 2, 3, 3])
+    var = np.concatenate([np.zeros((8, 8)), np.where(lvl[:, None] >= lvl[None], 0.0, -np.inf)],
+                         axis=1).astype(np.float32)[None, None]
+    masked = np.zeros((1, 1, 20, 70), np.float32)
+    masked[..., 3, :] = -np.inf
+    yield (*qkv(1, 16, 199, 199, 64), None, 0.125)
+    yield (*qkv(1, 12, 199, 199, 64), None, 0.125)
+    yield (*qkv(2, 3, 181, 362, 64), None, 0.125)
+    yield (*qkv(2, 3, 8, 16, 64), torch.from_numpy(var), 1.0)
+    for lq, lk in ((100, 100), (181, 362), (57, 300)):
+        yield (*qkv(1, 2, lq, lk, 64), None, 0.2)
+    yield (*qkv(1, 1, 256, 640, 32), None, 0.1)
+    yield (*qkv(1, 2, 20, 70, 64), torch.from_numpy(masked), 0.125)
+    yield (*qkv(1, 2, 33, 47, 16), torch.from_numpy(rng.standard_normal((1, 2, 33, 47)).astype(
+        np.float32)), 0.25)
+    yield (*qkv(2, 2, 65, 130, 100), torch.from_numpy(rng.standard_normal((2, 1, 1, 130)).astype(
+        np.float32)), 0.1)
+    yield (*qkv(1, 4, 70, 97, 128), None, 128 ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_matches_plain(cuda, dtype):
+    for q, k, v, bias, scale in _flash_cases():
+        q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
+        bias = None if bias is None else bias.to(cuda)
+        before = tatt.LAUNCHES
+        got = tatt.flash_attention(q, k, v, bias, scale=scale)
+        assert tatt.LAUNCHES == before + 1
+        want = tatt.flash_attention_plain(q, k, v, bias, scale=scale)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert torch.isfinite(got).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+        else:
+            ulp = 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+            assert (got.float() - want.float()).abs().max().item() <= ulp, tuple(q.shape)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_match_plain(cuda):
+    """The autograd path (kernel forward, the float32 recompute backward)
+    against autograd through the plain version; the bias gradient keeps the
+    bias's broadcast shape."""
+    rng = np.random.default_rng(5)
+    shapes = ((1, 2, 32, 16), (1, 2, 48, 16), (1, 2, 48, 16), (1, 1, 32, 48))
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = []
+    for fn in (tatt.flash_attention, tatt.flash_attention_plain):
+        leaves = [torch.from_numpy(a).to(cuda).requires_grad_() for a in arrays]
+        o = fn(*leaves[:3], leaves[3], scale=0.25)
+        (o * torch.cos(o)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_bad_inputs(cuda):
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.flash_attention(*(torch.zeros((1, 2, 8, 129), device=cuda),) * 3)
+    with pytest.raises(ValueError, match="one dtype"):
+        tatt.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="do not fit"):
+        tatt.flash_attention(q, q[..., :32], q)
+    with pytest.raises(ValueError, match="bias"):
+        tatt.flash_attention(q, q, q, torch.zeros((8, 8)))

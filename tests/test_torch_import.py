@@ -1,6 +1,6 @@
 """artalk_tpu_torch stays free of jax, the precision switches resolve as in
-the JAX engine, and the parts it does not port yet raise instead of being
-ignored."""
+the JAX engine, the parts it does not port yet raise instead of being
+ignored, and the kernels' wrappers take no device but the CPU and CUDA."""
 
 import os
 import subprocess
@@ -11,9 +11,7 @@ import torch
 
 from artalk_tpu_torch import config as tcfg
 from artalk_tpu_torch import engine as tengine
-from artalk_tpu_torch.models.ar_model import BitwiseARModel
 from artalk_tpu_torch.models.gagavatar import avatar as gaga_avatar
-from artalk_tpu_torch.models.wav2vec import Wav2VecEncoder
 from artalk_tpu_torch.ops import gsplat, rasterizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,15 +32,17 @@ sys.exit(1 if bad else 0)
 
 def test_import_leaves_jax_out():
     """Every module of the port, and chip_smoke.py, import without jax or
-    artalk_tpu (whose __init__ imports jax); the GAGAvatar modules are among
-    them."""
+    artalk_tpu (whose __init__ imports jax); the GAGAvatar modules, the
+    flash-attention wrapper, HuBERT and Mimi are among them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     imported = set(proc.stdout.split("\n")[0].split())
     gaga = {f"artalk_tpu_torch.models.gagavatar.{m}"
             for m in ("avatar", "dino", "generators", "style_unet", "watermark")}
-    assert gaga | {"artalk_tpu_torch.ops.gsplat", "artalk_tpu_torch.ops.resize2d"} <= imported
+    assert gaga | {"artalk_tpu_torch.ops.gsplat", "artalk_tpu_torch.ops.resize2d",
+                   "artalk_tpu_torch.ops.attention", "artalk_tpu_torch.models.hubert",
+                   "artalk_tpu_torch.models.mimi"} <= imported
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -89,20 +89,6 @@ def test_gaga_precision_switches_resolve(monkeypatch, env, want):
     monkeypatch.setenv("ARTALK_GAGA_PRECISION", "bogus")
     with pytest.raises(ValueError, match="exact"):
         gaga_avatar.resolve_precision()
-
-
-@pytest.mark.parametrize("kwargs", [
-    {"do_stable_layer_norm": False}, {"feat_extract_norm": "group"},
-    {"use_flash_attention": True}])
-def test_unported_wav2vec_layouts_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Wav2VecEncoder(tcfg.Wav2VecConfig(**kwargs))
-
-
-def test_mimi_encoder_raises():
-    cfg = tcfg.ModelConfig(ar=tcfg.ARConfig(audio_encoder="mimi"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        BitwiseARModel(cfg)
 
 
 @pytest.mark.parametrize("flag", ["--run_app"])

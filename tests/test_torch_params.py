@@ -40,11 +40,12 @@ def torch_threads():
 
 
 def torch_config(cfg):
-    """The port's ModelConfig for a JAX ModelConfig (same fields, no mimi)."""
+    """The port's ModelConfig for a JAX ModelConfig (same fields)."""
     return tcfg.ModelConfig(
         ar=tcfg.ARConfig(**dataclasses.asdict(cfg.ar)),
         vae=tcfg.VAEConfig(**dataclasses.asdict(cfg.vae)),
         wav2vec=tcfg.Wav2VecConfig(**dataclasses.asdict(cfg.wav2vec)),
+        mimi=tcfg.MimiEncoderConfig(**dataclasses.asdict(cfg.mimi)),
         fps=cfg.fps, sample_rate=cfg.sample_rate)
 
 
