@@ -18,12 +18,15 @@ and ``int8``), ``serving.StreamPool``, the GAGAvatar path of
 (``models/gagavatar``; ``ARTALK_GAGA_PRECISION=fast|exact``), and every audio
 encoder: wav2vec2 (``models/wav2vec``; ``Wav2VecConfig.use_flash_attention``),
 HuBERT (``models/hubert``) and Mimi (``models/mimi``; ``"AUDIO_ENCODER":
-"mimi"`` in ``config.json``). Five hand-written CUDA kernels carry them: the
-z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block stack
-(``csrc/ar_block_stack.cu``), the wav2vec2 encoder stack
+"mimi"`` in ``config.json``), the FLAME landmarks, the debug renderers
+(``models/renderer_extras``) and the motion metrics (``evaluation``;
+``python -m artalk_tpu_torch.evaluation``). Six hand-written CUDA kernels
+carry them: the z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block
+stack (``csrc/ar_block_stack.cu``), the wav2vec2 encoder stack
 (``csrc/encoder_block_stack.cu``), the 32-channel gaussian splat
-(``csrc/gsplat.cu``) and flash attention (``csrc/flash_attention.cu``);
-everything else on the paths is plain PyTorch. On the CPU every kernel takes its plain version, which the tests
+(``csrc/gsplat.cu``), flash attention (``csrc/flash_attention.cu``) and the
+splat prepass's int32 key sort (``csrc/sort.cu``); everything else on the
+paths is plain PyTorch. On the CPU every kernel takes its plain version, which the tests
 (``python -m pytest tests/test_torch_*.py``) hold against the JAX package.
 ``ROADMAP.md`` lists what is still to be ported.
 """

@@ -1,5 +1,6 @@
 """The port's models: motion tokenizer, AR generator, audio encoders
-(wav2vec2, HuBERT, Mimi), style encoder, FLAME geometry, mesh renderer.
+(wav2vec2, HuBERT, Mimi), style encoder, FLAME geometry, mesh renderer, debug point and texture
+renderers.
 
 The names of the JAX package's ``models/__init__.py`` are exported lazily:
 importing a submodule runs this file, and the encoders import the ops that
@@ -15,6 +16,8 @@ _EXPORTS = {
     "BitwiseARModel": ".ar_model",
     "FlameModel": ".flame",
     "MeshRenderer": ".renderer",
+    "PointRenderer": ".renderer_extras",
+    "TextureRenderer": ".renderer_extras",
 }
 
 __all__ = list(_EXPORTS)

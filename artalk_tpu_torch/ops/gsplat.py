@@ -9,10 +9,12 @@ it is XLA in JAX:
    operations).
 2. ``_build_instances``: a stable depth argsort; each gaussian emits one
    instance per 16x128-pixel tile of its bbox-anchored 2x4-tile window that
-   its clamped bbox meets (``_slot_validity``); the instance keys
-   (tile, depth rank) are sorted and ``searchsorted`` gives each tile's
-   segment. Instances are counted per frame, so there is no static budget:
-   this is the JAX package's exact path (``max_instances=None``).
+   its clamped bbox meets (``_slot_validity``); the int32 instance keys
+   ``tile << rank_bits | depth rank`` are sorted by ``ops/sort.sort_keys``
+   (the bitonic CUDA kernel of ``csrc/sort.cu`` for CUDA tensors) and
+   ``searchsorted`` gives each tile's segment. Instances are counted per
+   frame, so there is no static budget: this is the JAX package's exact path
+   (``max_instances=None``).
 
 ``splat_tiles`` composites every tile's segment front to back with the CUDA
 kernel in ``csrc/gsplat.cu`` (CUDA tensors only), ``splat_tiles_plain`` with
@@ -39,6 +41,7 @@ from typing import Dict, Tuple
 import torch
 
 from ._nvcc import CSRC, build_library
+from .sort import sort_keys
 
 CHANNELS = 32
 GTILE_H = 16       # the JAX tile: the unit of the instance lists
@@ -152,17 +155,21 @@ def _build_instances(comp: Dict[str, torch.Tensor], opac: torch.Tensor, size: in
     n = comp["depth"].shape[0]
     tiles_x = size // GTILE_W
     num_tiles = tiles_x * (size // GTILE_H)
+    rank_bits = max((n - 1).bit_length(), 1)
+    if not (num_tiles + 1) < (1 << (31 - rank_bits)):
+        raise ValueError(f"instance keys overflow int32: {num_tiles} tiles of {n} gaussians")
     perm = torch.argsort(comp["depth"], stable=True)
     tx, ty, valid = _slot_validity(comp["mx"][perm], comp["my"][perm],
                                    comp["radius"][perm], opac[perm], size)
-    # key = tile * n + depth rank: unique, since a gaussian never emits two
-    # slots into one tile
-    rank = torch.arange(n, device=perm.device).expand(DUP, n)
-    key = (ty.long() * tiles_x + tx.long()) * n + rank
-    sorted_key = torch.sort(key[valid]).values
-    bounds = torch.arange(num_tiles + 1, device=perm.device) * n
+    # key = tile << rank_bits | depth rank, as in JAX: unique, since a
+    # gaussian never emits two slots into one tile; only the valid slots are
+    # sorted
+    rank = torch.arange(n, dtype=torch.int32, device=perm.device).expand(DUP, n)
+    tile = (ty * tiles_x + tx)[valid].to(torch.int32)
+    sorted_key = sort_keys((tile << rank_bits) | rank[valid])
+    bounds = torch.arange(num_tiles + 1, dtype=torch.int32, device=perm.device) << rank_bits
     offsets = torch.searchsorted(sorted_key, bounds).to(torch.int32)
-    return perm[sorted_key % n].to(torch.int32), offsets
+    return perm[sorted_key & ((1 << rank_bits) - 1)].to(torch.int32), offsets
 
 
 def prepass(xyz, colors, opacities, scales, rotations, cam_matrix, focal: float = 12.0,

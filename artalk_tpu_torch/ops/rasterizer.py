@@ -72,6 +72,21 @@ def face_planes(verts_screen: torch.Tensor, faces: torch.Tensor
     return a0, a1, az
 
 
+def edge_ties(verts_screen: torch.Tensor, faces: torch.Tensor, pix,
+              tol: float = 1e-6) -> torch.Tensor:
+    """(N,) bool on the CPU: for pixels ``pix`` (N, 2) of (y, x), does the
+    centre lie on an edge of a face (one barycentric within ``tol`` of 0 in
+    float64, none below)? There two roundings of the plane evaluation (the
+    kernel's uncontracted one, an FMA elsewhere) may decide coverage either
+    way, so comparisons of coverage allow differences only at such pixels."""
+    a0, a1, _ = face_planes(verts_screen.detach().double().cpu(), faces.cpu())
+    p = torch.as_tensor(pix).reshape(-1, 2).flip(1).double() + 0.5       # (N, 2) x, y
+    w0 = p[:, 0:1] * a0[:, 0] + p[:, 1:2] * a0[:, 1] + a0[:, 2]
+    w1 = p[:, 0:1] * a1[:, 0] + p[:, 1:2] * a1[:, 1] + a1[:, 2]
+    ws = torch.stack([w0, w1, 1.0 - w0 - w1], dim=-1)                   # (N, F, 3)
+    return ((ws.amin(-1).abs() <= tol) & (ws >= -tol).all(-1)).any(-1)
+
+
 def chunk_bboxes(verts_screen: torch.Tensor, faces: torch.Tensor,
                  num_chunks: int) -> torch.Tensor:
     """(num_chunks, 4) [xmin, xmax, ymin, ymax] over each FACE_CHUNK of faces."""

@@ -1,0 +1,122 @@
+"""Ascending sort of int32 keys: a hand-written CUDA bitonic network and its
+plain version.
+
+Counterpart of the Pallas bitonic sort in ``tools/exp_pallas_sort.py``
+(``bitonic_sort`` / ``_bitonic_kernel``), which the JAX package wrote for the
+payload-free instance-key sort of the splat prepass (``jax.lax.sort`` in
+``artalk_tpu/ops/gsplat.py``); here that sort is ``ops/gsplat.py``'s
+``_build_instances``. The keys are compared as signed int32.
+
+``sort_keys`` sorts a contiguous 1-D int32 tensor of any length n: CUDA
+tensors go through the kernel in ``csrc/sort.cu``, CPU tensors through
+``sort_keys_plain``, any other device raises. Both pad the keys to
+P = 2^ceil(log2 max(n, 2)) with INT32_MAX (which sorts last) and run the same
+network: for k = 2, 4, ..., P and j = k/2, ..., 1, the keys at i and i ^ j
+are exchanged so that the smaller comes first where bit k of i is 0 and last
+where it is 1. The plain version repeats that arithmetic and is independent
+of ``torch.sort``.
+
+The kernel's shared library is built with nvcc at first use (``ops/_nvcc.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._nvcc import CSRC, build_library
+
+INT32_MAX = 2 ** 31 - 1
+MAX_KEYS = 2 ** 30
+
+# Calls of sort_keys() that launched the kernel in this process (one per call,
+# whatever the number of CUDA launches inside it).
+LAUNCHES = 0
+# CUDA launches those calls made, as the entry point of csrc/sort.cu reports
+# them (55 for one call at P = 2^20).
+CUDA_LAUNCHES = 0
+
+SOURCE = CSRC / "sort.cu"
+BUILD_REPORT = ""
+_LIB = None
+
+
+def padded_length(n: int) -> int:
+    """P: the power of two the network sorts, at least 2."""
+    return max(2, 1 << (n - 1).bit_length())
+
+
+def _check(keys: torch.Tensor) -> None:
+    if keys.dtype != torch.int32 or keys.ndim != 1 or not keys.is_contiguous():
+        raise ValueError(f"sort_keys: want a contiguous 1-D int32 tensor, got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    if keys.shape[0] > MAX_KEYS:
+        raise ValueError(f"sort_keys: at most {MAX_KEYS} keys, got {keys.shape[0]}")
+
+
+def build() -> float:
+    """Build (or reuse) and load the kernel's shared library. Returns the
+    seconds spent, 0.0 when it was already loaded."""
+    global _LIB, BUILD_REPORT
+    if _LIB is not None:
+        return 0.0
+    lib, seconds, BUILD_REPORT = build_library(SOURCE)
+    fn = lib.artalk_sort_keys
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    _LIB = lib
+    return seconds
+
+
+def sort_keys(keys: torch.Tensor) -> torch.Tensor:
+    """``keys`` (n,) int32 sorted ascending (signed), as a new tensor. A CUDA
+    tensor goes through the kernel (on the current stream; the CUDA launches
+    it makes are added to ``CUDA_LAUNCHES``), a CPU tensor through
+    ``sort_keys_plain``."""
+    global LAUNCHES, CUDA_LAUNCHES
+    dev = keys.device
+    if dev.type == "cpu":
+        return sort_keys_plain(keys)
+    if dev.type != "cuda":
+        raise ValueError(f"sort_keys: unsupported device {dev}")
+    _check(keys)
+    n = keys.shape[0]
+    if n == 0:
+        return keys.clone()
+    build()
+    p = padded_length(n)
+    scratch = torch.empty(p, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
+    err = _LIB.artalk_sort_keys(keys.data_ptr(), n, scratch.data_ptr(), p, stream,
+                                ctypes.byref(launched))
+    if err != 0:
+        raise RuntimeError(f"sort kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    CUDA_LAUNCHES += launched.value
+    return scratch[:n]
+
+
+def sort_keys_plain(keys: torch.Tensor) -> torch.Tensor:
+    """Plain-torch version of ``sort_keys``: the same padding and network,
+    each substage a gather of the partner at ``i ^ j`` and a min/max by
+    direction."""
+    _check(keys)
+    n = keys.shape[0]
+    p = padded_length(n)
+    x = torch.full((p,), INT32_MAX, dtype=torch.int32, device=keys.device)
+    x[:n] = keys
+    idx = torch.arange(p, device=keys.device)
+    k = 2
+    while k <= p:
+        ascending = (idx & k) == 0
+        j = k // 2
+        while j >= 1:
+            partner = x[idx ^ j]
+            take_min = ((idx & j) == 0) == ascending
+            x = torch.where(take_min, torch.minimum(x, partner), torch.maximum(x, partner))
+            j //= 2
+        k *= 2
+    return x[:n]

@@ -2,14 +2,16 @@
 """GPU smoke run of artalk_tpu_torch: builds the CUDA kernels, checks each
 against its plain version, replays the seed-0 goldens, and drives the
 speech -> mesh-video path at the production width in every precision mode,
-StreamPool, the speech -> gaussian-splat avatar (GAGAvatar) path, and the
-alternate audio encoders (flash-attention wav2vec2, HuBERT, Mimi).
+StreamPool, the speech -> gaussian-splat avatar (GAGAvatar) path, the
+alternate audio encoders (flash-attention wav2vec2, HuBERT, Mimi), the
+instance-key sort of the splat prepass, the debug point and texture
+renderers, and the motion metrics.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
 Phases (any failure raises and exits non-zero; no phase catches its own):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the five kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
+  2. build the six kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
      once) and print the seconds and nvcc's register / shared-memory report;
   3. kernel vs plain version on the synthetic FLAME head at 512x512, 4 frames:
      face ids agree on >= 99.9 % of pixels, background exactly, zbuf to
@@ -58,9 +60,10 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      with the production networks (DINOv2 ViT-B/14 + DPT, StyleUNet 512) on
      random seed-0 weights, inference of phase 5's audio, then
      rendering(shape_id="synthetic_0") -> 250 frames with the splat kernel
-     launched at least 250 times; phase 5's motions rendered in one call equal
-     the same rendered in two halves (the forehead EMA resumed) exactly; fast
-     agrees with exact within GAGA_FAST_LSB;
+     and the sort kernel each launched at least 250 times; phase 5's motions
+     rendered in one call equal the same rendered in two halves (the
+     forehead EMA resumed) exactly; fast agrees with exact within
+     GAGA_FAST_LSB;
  12. splat kernel vs splat_tiles_plain on two full-width scenes (bench.py's
      180,255-gaussian scene, seed 3, and the synthetic_0 avatar's gaussians at
      the neutral pose), with float32 and bf16 colors: max abs error within
@@ -70,7 +73,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      the MAX_RX / MAX_RY emission clamp dropped, where it changes the lists)
      must break that limit;
  13. GAGAvatar times by CUDA events on the avatar scene, per precision: the
-     splat kernel, its plain version, the prepass, the SR and the whole frame,
+     splat kernel, its plain version, the prepass (and the same prepass with
+     torch.sort in place of the sort kernel), the SR and the whole frame,
      and the kernel's bound (the larger of bytes over 3.35 TB/s and the
      alpha evaluations and composites the pixels need before they stop over
      67 TFLOP/s fp32);
@@ -108,7 +112,33 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      yardstick torch.nn.functional.scaled_dot_product_attention (TF32 off;
      the backend its dispatcher picks), and the bound (the larger of
      q, k, v and out over 3.35 TB/s and the two products' FLOPs over 67
-     TFLOP/s fp32, q.k^T at 989 TFLOP/s for bf16 inputs).
+     TFLOP/s fp32, q.k^T at 989 TFLOP/s for bf16 inputs);
+ 19. the sort kernel vs sort_keys_plain and torch.sort, bit for bit (0
+     mismatches), on the instance keys of the synthetic_0 avatar's frame and
+     of bench.py's splat scene, and on random full-range int32 keys with
+     duplicates, INT32_MIN and INT32_MAX at n = 0, 1, 2047, 2048, 2049,
+     1,000,003, 2^20 and 2^21; one wrapper launch per call with n > 0;
+ 20. the sort on the GAGAvatar path: phase 11 counts at least one sort launch
+     per frame, and one avatar frame's prepass (inst, offsets) equals the
+     same frame's prepass with torch.sort swapped in for the kernel;
+ 21. the debug renderers at full width on FLAME vertices of phase 5's
+     motions: PointRenderer(image_size=512) (sort and splat launches, one
+     each per frame; output finite, in [0, 255], covering pixels) and
+     TextureRenderer at 512x512 (planar UVs of the template, a seeded 256^2
+     texture, seeded SH lights, a flame mask; 2 z-buffer launches per frame,
+     masks non-empty, the face mask inside masks_all), each held to the same
+     inputs run on the CPU through the plain versions: points within 1e-4 x
+     255, texture masks equal but at edge ties and images within 1e-4
+     elsewhere (the tolerances of the CPU tests);
+ 22. evaluate_motion on the card (phase 5's exact motions against phase 8's
+     int8 motions, with the audio) equals a CPU run: the integer keys exactly,
+     the metrics to rtol 1e-5 and atol 1e-9; the LVE of a clip against itself
+     is 0;
+ 23. sort times by CUDA events at the avatar frame's key count and at 2^21:
+     the kernel alone, through its wrapper, sort_keys_plain and torch.sort
+     (the library yardstick, never called by the port), the bound (8 bytes a
+     key over 3.35 TB/s) and the CUDA launches per sort; torch.profiler's
+     device time of each of the kernel's three CUDA kernels per sort.
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -117,6 +147,7 @@ kernels' numbers; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -130,6 +161,7 @@ import numpy as np
 import torch
 
 from artalk_tpu_torch import config as tcfg
+from artalk_tpu_torch import evaluation
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
 from artalk_tpu_torch.models.flame import FlameModel
 from artalk_tpu_torch.models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS
@@ -137,11 +169,13 @@ from artalk_tpu_torch.models.gagavatar.generators import transform_emoca_to_p3d
 from artalk_tpu_torch.models import mimi as tmimi
 from artalk_tpu_torch.models.hubert import HubertEncoder
 from artalk_tpu_torch.models.renderer import MeshRenderer
+from artalk_tpu_torch.models.renderer_extras import PointRenderer, TextureRenderer
 from artalk_tpu_torch.ops import ar_block_stack as ar_stack
 from artalk_tpu_torch.ops import attention
 from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
 from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
+from artalk_tpu_torch.ops import sort
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
 
@@ -222,6 +256,27 @@ MIMI_MODES = {"exact": {}, "int8": {"ARTALK_AR_PRECISION": "int8"}}
 # gap under MIMI_TIE of the distance (float32 on both sides)
 MIMI_CODES_AGREE = 0.9
 MIMI_TIE = 1e-4
+# random key counts of phase 19: both sides of the 2048-key tile, a ragged
+# million, and the padded sizes of the avatar frame (2^20) and of JAX's
+# production budget (2^21)
+SORT_SIZES = (0, 1, 2047, 2048, 2049, 1_000_003, 1 << 20, 1 << 21)
+# phase 21: frames rendered by the debug renderers, the point renderer's
+# orbit distance (the 0.22-tall head fills about half of the 60-degree view),
+# its tolerance against the CPU (the splat's 1e-4 on the x 255 scale; the
+# stops of the kernel and the plain version differ by at most T_EPS = 1e-4 of
+# the largest color), and the texture renderer's camera (pytorch3d R =
+# diag(-1, 1, -1), T = (0, 0, 2)) and image tolerance off the masks' edge
+# ties, both as in tests/test_torch_renderer_extras.py
+DEBUG_FRAMES = 2
+POINT_DIST = 0.4
+POINT_TOL = 1e-4 * 255
+TEXTURE_CAM = np.array([[-1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, -1.0, 2.0]],
+                       np.float32)
+TEXTURE_TOL = 1e-4
+# phase 22: evaluate_motion's float metrics on the card against the CPU (LVE
+# is about 6e-5 there, FDD smaller; the measured gap 2.1e-10, PERF.md, PR 5);
+# the integer keys must be equal
+EVAL_RTOL, EVAL_ATOL = 1e-5, 1e-9
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -263,7 +318,7 @@ def phase_device() -> str:
 def zero_launches() -> None:
     """Set every kernel's launch count to 0."""
     rasterizer.LAUNCHES = ar_stack.LAUNCHES = enc_stack.LAUNCHES = gsplat.LAUNCHES = 0
-    attention.LAUNCHES = 0
+    attention.LAUNCHES = sort.LAUNCHES = sort.CUDA_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
@@ -272,16 +327,16 @@ def launch_counts() -> dict:
 
 
 def phase_build() -> None:
-    """All five libraries at once: nvcc runs in a subprocess each."""
+    """All six libraries at once: nvcc runs in a subprocess each."""
     t0 = time.perf_counter()
-    mods = (rasterizer, ar_stack, enc_stack, gsplat, attention)
+    mods = (rasterizer, ar_stack, enc_stack, gsplat, attention, sort)
     with ThreadPoolExecutor(len(mods)) as pool:
         seconds = list(pool.map(lambda m: m.build(), mods))
     for mod, sec in zip(mods, seconds):
         print(f"[build] {os.path.relpath(mod.SOURCE, ROOT)}: {sec:.2f} s")
         for line in getattr(mod, "BUILD_REPORT", "").splitlines()[:2]:
             print(f"[build]   {line.strip()}")
-    print(f"[build] all five in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all six in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
@@ -417,9 +472,9 @@ def render_mesh(engine: ARTAvatarInferEngine, audio: np.ndarray, motions: np.nda
     if n_frames not in (None, 250) or launches < 250:
         raise AssertionError(f"[{save_name}] rendered {n_frames} frames with {launches} "
                              "rasterizer launches, want 250 and >= 250")
-    if any(launch_counts().values()) or gsplat.LAUNCHES:
+    if any(launch_counts().values()) or gsplat.LAUNCHES or sort.LAUNCHES:
         raise AssertionError(f"[{save_name}] the mesh render launched {launch_counts()}, "
-                             f"{gsplat.LAUNCHES} splats")
+                             f"{gsplat.LAUNCHES} splats, {sort.LAUNCHES} sorts")
     return out_path, n_frames, launches, ms_frame
 
 
@@ -735,7 +790,8 @@ def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
     floor = 0.999 if mode == "fused" else 0.9
     if agree < floor:
         raise AssertionError(f"[{mode}] only {agree:.4f} of the code bits agree with exact")
-    return engine, {"ms_window": run["ms_window"], "launches": run["launches"], "agree": agree}
+    return engine, {"ms_window": run["ms_window"], "launches": run["launches"], "agree": agree,
+                    "motions": run["motions"]}
 
 
 class DecodedBits:
@@ -972,15 +1028,16 @@ def phase_gaga(mode: str, dev: torch.device, audio: np.ndarray, motions: np.ndar
     out_path = engine.rendering(audio, own, shape_id="synthetic_0",
                                 save_name=f"chip_smoke_gaga_{mode}")
     t_path = time.perf_counter() - t0
-    launches = {"gsplat": gsplat.LAUNCHES, "rasterize": rasterizer.LAUNCHES,
-                "ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    launches = {"gsplat": gsplat.LAUNCHES, "sort": sort.LAUNCHES,
+                "sort CUDA launches": sort.CUDA_LAUNCHES, "rasterize": rasterizer.LAUNCHES, "ar": ar_stack.LAUNCHES,
+                "encoder": enc_stack.LAUNCHES}
     n, size = len(motions), CAM_PARAMS["size"]
     n_frames = rendered_frames(out_path)
     if n_frames not in (None, len(own)) or len(own) != n:
         raise AssertionError(f"[gaga {mode}] rendered {n_frames} frames of {len(own)} motions")
-    if launches["gsplat"] < n or launches["rasterize"]:
-        raise AssertionError(f"[gaga {mode}] launches {launches}: want >= {n} splats, "
-                             "no rasterizer")
+    if launches["gsplat"] < n or launches["sort"] < n or launches["rasterize"]:
+        raise AssertionError(f"[gaga {mode}] launches {launches}: want >= {n} splats and "
+                             f">= {n} sorts, no rasterizer")
 
     flame = engine.gagavatar_flame
     t0 = time.perf_counter()
@@ -1005,7 +1062,7 @@ def phase_gaga(mode: str, dev: torch.device, audio: np.ndarray, motions: np.ndar
         raise AssertionError(f"[gaga {mode}] two halves differ from one call by {halves_diff}")
     if spread < 1.0:
         raise AssertionError(f"[gaga {mode}] blank frames (luma std {spread:.3g})")
-    return engine, whole, {"launches": launches["gsplat"],
+    return engine, whole, {"launches": launches["gsplat"], "sort_launches": launches["sort"],
                            "ms_frame": t_frames * 1e3 / len(motions)}
 
 
@@ -1119,18 +1176,18 @@ def phase_splat(scenes: dict) -> dict:
     return errs
 
 
-def profile_frames(frame, colors: str, reps: int = 5) -> None:
-    """torch.profiler over ``reps`` calls of ``frame``: the device's busy share
-    of the host clock, the kernels launched per frame, and the kernels that
+def profile_calls(fn, label: str, reps: int = 5) -> None:
+    """torch.profiler over ``reps`` calls of ``fn``: the device's busy share
+    of the host clock, the kernels launched per call, and the kernels that
     take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    frame()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            frame()
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -1141,10 +1198,10 @@ def profile_frames(frame, colors: str, reps: int = 5) -> None:
     busy_us = sum(us for _, us in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    print(f"[profile] gaga {colors}: {reps} frames, device busy {busy_us / wall_us:.3f} of "
-          f"the host clock ({busy_us / reps / 1e3:.3f} of {wall_us / reps / 1e3:.3f} ms per "
-          f"frame), {launches / reps:.0f} device activities per frame; most device time: "
-          + "; ".join(f"{name[:60]} {us / reps / 1e3:.3f} ms x{n // reps}"
+    print(f"[profile] {label}: {reps} calls, device busy {busy_us / wall_us:.3f} of "
+          f"the host clock ({busy_us / reps / 1e3:.4f} of {wall_us / reps / 1e3:.4f} ms per "
+          f"call), {launches / reps:.0f} device activities per call; most device time: "
+          + "; ".join(f"{name[:60]} {us / reps / 1e3:.4f} ms x{n // reps}"
                       for name, (n, us) in top))
 
 
@@ -1156,6 +1213,8 @@ def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
     args = avatar_splat_scene(engine)
     bf16 = gaga.bf16
     prep_ms = cuda_ms(lambda: gsplat.prepass(*args, size=size, bf16_colors=bf16), 10)
+    prep_lib_ms = cuda_ms(lambda: prepass_with_sort(args, lambda k: torch.sort(k).values, bf16),
+                          10)
     geo, cols, inst, offsets = gsplat.prepass(*args, size=size, bf16_colors=bf16)
     kernel_ms = cuda_ms(lambda: gsplat.splat_tiles(geo, cols, inst, offsets, size), 50)
     plain_ms = cuda_ms(lambda: gsplat.splat_tiles_plain(geo, cols, inst, offsets, size), 2)
@@ -1164,7 +1223,7 @@ def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
     with torch.no_grad():
         sr_ms = cuda_ms(lambda: gaga._upsampler(render[None], compute_dtype=sr_dtype), 10)
     frame_ms = cuda_ms(lambda: gaga._frame(args[0][:NUM_FLAME_VERTS], args[5]), 10)
-    profile_frames(lambda: gaga._frame(args[0][:NUM_FLAME_VERTS], args[5]), colors)
+    profile_calls(lambda: gaga._frame(args[0][:NUM_FLAME_VERTS], args[5]), f"gaga {colors} frame")
     _, evaluated, composited = gsplat.composite_plain(geo, cols, inst, offsets, size)
     evaluated, composited = int(evaluated), int(composited)
     # each input read once (the gaussians' 6 geometry floats and 32 colors,
@@ -1176,8 +1235,9 @@ def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
     bound = max(bytes_ms, ops_ms)
     print(f"[times] gaga {colors} colors, SR {'bf16' if bf16 else 'float32'}, per "
           f"frame: splat kernel {kernel_ms:.4f} ms, splat_tiles_plain {plain_ms:.2f} ms, "
-          f"prepass {prep_ms:.4f} ms, SR {sr_ms:.4f} ms, whole frame (prepass + splat + SR "
-          f"+ clip) {frame_ms:.4f} ms")
+          f"prepass {prep_ms:.4f} ms (with torch.sort in place of the sort kernel "
+          f"{prep_lib_ms:.4f} ms), SR {sr_ms:.4f} ms, whole frame (prepass + splat + SR + clip) "
+          f"{frame_ms:.4f} ms")
     print(f"[times] gsplat/{colors} bound: {moved} bytes -> {bytes_ms:.5f} ms; "
           f"{composited} composites x ({SPLAT_EVAL_FLOP} + {SPLAT_COMPOSITE_FLOP}) FLOP -> "
           f"{ops_ms:.5f} ms; the kernel reaches {bound / kernel_ms:.3f} of the bound "
@@ -1185,12 +1245,14 @@ def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
           f"{evaluated / composited:.2f} per composite)")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
-            "prepass_ms": prep_ms, "sr_ms": sr_ms, "frame_ms": frame_ms}
+            "prepass_ms": prep_ms, "prepass_torch_sort_ms": prep_lib_ms, "sr_ms": sr_ms,
+            "frame_ms": frame_ms}
 
 
-def phase_gaga_all(dev: torch.device, audio: np.ndarray, motions: np.ndarray) -> dict:
+def phase_gaga_all(dev: torch.device, audio: np.ndarray, motions: np.ndarray):
     """Phases 11-13: the GAGAvatar path per precision mode, the splat kernel
-    on both scenes, the times. Returns the kernels-line fields per color type."""
+    on both scenes, the times. Returns the kernels-line fields per color
+    type, the sort launches of phase 11's exact run and the two scenes."""
     frames, gaga, times, splat_scenes = {}, {}, {}, {"bench": bench_splat_scene(dev)}
     for mode, colors in GAGA_MODES.items():
         torch.cuda.empty_cache()
@@ -1207,11 +1269,12 @@ def phase_gaga_all(dev: torch.device, audio: np.ndarray, motions: np.ndarray) ->
     if any(reading[k] > lim for k, lim in GAGA_FAST_LSB.items()):
         raise AssertionError(f"fast GAGAvatar frames off the exact ones: {reading}")
     errs = phase_splat(splat_scenes)
-    return {colors: {"launches": gaga[mode]["launches"], "max_abs_err": errs[colors],
-                     **{k: v for k, v in times[colors].items()
-                        if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                     "ms_frame": gaga[mode]["ms_frame"]}
-            for mode, colors in GAGA_MODES.items()}
+    fields = {colors: {"launches": gaga[mode]["launches"], "max_abs_err": errs[colors],
+                       **{k: v for k, v in times[colors].items()
+                          if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                       "ms_frame": gaga[mode]["ms_frame"]}
+              for mode, colors in GAGA_MODES.items()}
+    return fields, gaga["exact"]["sort_launches"], splat_scenes
 
 
 def flash_inputs(b: int, h: int, lq: int, lk: int, hd: int, dev: torch.device,
@@ -1523,6 +1586,214 @@ def phase_flash_times(dev: torch.device, exact_ms: float) -> dict:
     return out
 
 
+def full_range_keys(n: int, seed: int, dev: torch.device) -> torch.Tensor:
+    """Seeded random int32 keys over the full range, a quarter of them
+    duplicates, with INT32_MIN first and INT32_MAX last."""
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int64, generator=g)
+    if n >= 4:
+        keys[: n // 4] = keys[n // 4: 2 * (n // 4)]
+        keys[0], keys[-1] = -2 ** 31, 2 ** 31 - 1
+    return keys.to(torch.int32).to(dev)
+
+
+def prepass_with_sort(args: list, sort_fn, bf16: bool = False):
+    """The splat prepass of one scene with ``sort_fn`` in place of
+    ops/sort.sort_keys."""
+    saved = gsplat.sort_keys
+    gsplat.sort_keys = sort_fn
+    try:
+        return gsplat.prepass(*args, size=CAM_PARAMS["size"], bf16_colors=bf16)
+    finally:
+        gsplat.sort_keys = saved
+
+
+def instance_keys(args: list) -> torch.Tensor:
+    """The int32 instance keys the prepass of one scene hands to the sort."""
+    keys = []
+
+    def record(k):
+        keys.append(k.clone())
+        return sort.sort_keys(k)
+
+    prepass_with_sort(args, record)
+    return keys[0]
+
+
+def phase_sort_kernel(dev: torch.device, scene_keys: dict) -> int:
+    """The sort kernel against sort_keys_plain and torch.sort on the scenes'
+    instance keys and on random full-range keys at SORT_SIZES: every output
+    equal to both, bit for bit. Returns the largest |difference| (0)."""
+    cases = dict(scene_keys)
+    for i, n in enumerate(SORT_SIZES):
+        cases[f"random n={n}"] = full_range_keys(n, 190 + i, dev)
+    worst = 0
+    for name, keys in cases.items():
+        n = keys.shape[0]
+        before, before_cuda = sort.LAUNCHES, sort.CUDA_LAUNCHES
+        got = sort.sort_keys(keys)
+        launched, cuda_launched = sort.LAUNCHES - before, sort.CUDA_LAUNCHES - before_cuda
+        wants = {"sort_keys_plain": sort.sort_keys_plain(keys),
+                 "torch.sort": torch.sort(keys).values}
+        torch.cuda.synchronize()
+        if (got.dtype != torch.int32 or got.shape != keys.shape or launched != int(n > 0)
+                or (cuda_launched > 0) != (n > 0)):
+            raise AssertionError(f"[sort] {name}: {got.dtype} {tuple(got.shape)}, "
+                                 f"{launched} wrapper launches, {cuda_launched} CUDA launches")
+        diffs = {w: (got.long() - want.long()).abs() for w, want in wants.items()}
+        mismatches = {w: int((d != 0).sum()) for w, d in diffs.items()}
+        print(f"[sort] {name}: {n} keys (padded to {sort.padded_length(n)}, "
+              f"{cuda_launched} CUDA launches): mismatches "
+              + ", ".join(f"vs {w} {m}" for w, m in mismatches.items()))
+        if any(mismatches.values()):
+            raise AssertionError(f"[sort] {name}: the kernel's output differs: {mismatches}")
+        worst = max([worst] + [int(d.max()) for d in diffs.values() if n])
+    return worst
+
+
+def phase_sort_path(args: list) -> None:
+    """One avatar frame's prepass with the sort kernel against the same
+    prepass with torch.sort swapped in: equal instance lists and offsets."""
+    size = CAM_PARAMS["size"]
+    _, _, inst, offsets = gsplat.prepass(*args, size=size)
+    _, _, lib_inst, lib_offsets = prepass_with_sort(args, lambda k: torch.sort(k).values)
+    equal = torch.equal(inst, lib_inst) and torch.equal(offsets, lib_offsets)
+    print(f"[sort path] avatar frame: {len(inst)} instances over {len(offsets) - 1} tiles; "
+          f"prepass with the sort kernel equals the prepass with torch.sort: {equal}")
+    if not equal:
+        raise AssertionError("[sort path] the kernel's prepass differs from torch.sort's")
+
+
+def phase_debug_renderers(dev: torch.device, flame_data: dict, motions: np.ndarray) -> dict:
+    """PointRenderer and TextureRenderer at 512x512 on FLAME vertices of
+    DEBUG_FRAMES of phase 5's motions, on the card and on the CPU."""
+    cpu = torch.device("cpu")
+    frames = len(motions[:DEBUG_FRAMES])
+    flame = FlameModel(flame_data).to(dev)
+    with torch.no_grad():
+        verts = flame.motion_to_verts(torch.zeros(frames, 300, device=dev),
+                                      torch.from_numpy(motions[:frames]).to(dev))
+    zero_launches()
+    img = PointRenderer(image_size=IMAGE, device=dev)(
+        verts, d=POINT_DIST, generator=torch.Generator().manual_seed(21))
+    torch.cuda.synchronize()
+    point_launches = {"sort": sort.LAUNCHES, "gsplat": gsplat.LAUNCHES}
+    want = PointRenderer(image_size=IMAGE, device=cpu)(
+        verts.cpu(), d=POINT_DIST, generator=torch.Generator().manual_seed(21))
+    point_err = (img.cpu() - want).abs().max().item()
+    covered = (img.amax(dim=1) > 1.0).float().mean().item()
+    print(f"[debug] PointRenderer {tuple(img.shape)}: launches {point_launches}, covered "
+          f"{covered:.4f}, range [{img.min().item():.3g}, {img.max().item():.3g}], card vs CPU "
+          f"max abs err {point_err:.3g} (limit {POINT_TOL})")
+    if (not torch.isfinite(img).all() or img.min() < 0 or img.max() > 255.0 + 1e-3
+            or covered < 0.005):
+        raise AssertionError("[debug] PointRenderer: output not finite, out of range or blank")
+    if point_launches != {"sort": frames, "gsplat": frames} or point_err > POINT_TOL:
+        raise AssertionError(f"[debug] PointRenderer: launches {point_launches}, error "
+                             f"{point_err:.3g}")
+
+    v = flame_data["v_template"]
+    lo, hi = v[:, :2].min(0), v[:, :2].max(0)
+    tuv = {"verts_uvs": ((v[:, :2] - lo) / (hi - lo)).astype(np.float32),
+           "textures_idx": flame_data["faces"], "verts_idx": flame_data["faces"]}
+    mask = np.nonzero(v[:, 2] > np.quantile(v[:, 2], 0.6))[0]
+    rng = np.random.default_rng(21)
+    tex = rng.random((3, 256, 256)).astype(np.float32)
+    lights = (rng.standard_normal((frames, 9, 3)) * 0.3).astype(np.float32)
+    args = dict(image_size=IMAGE, transform_matrix=TEXTURE_CAM, focal_length=12.0)
+    zero_launches()
+    renderer = TextureRenderer(tuv, flame_mask=mask, device=dev)
+    images, masks, face = renderer(verts, tex, lights, **args)
+    torch.cuda.synchronize()
+    raster_launches = rasterizer.LAUNCHES
+    want = TextureRenderer(tuv, flame_mask=mask, device=cpu)(verts.cpu(), tex, lights, **args)
+    faces = renderer.faces.cpu()
+    sub = torch.where(renderer.flame_mask.cpu()[:, None], faces, faces[:, :1])
+    ties = image_err = 0.0
+    for b in range(frames):
+        vs = TextureRenderer._project(verts[b].cpu(), torch.from_numpy(TEXTURE_CAM), 12.0,
+                                      torch.zeros(2), IMAGE)
+        differ = (masks[b, 0].cpu() != want[1][b, 0]).numpy()
+        face_differ = (face[b, 0].cpu() != want[2][b, 0]).numpy()
+        if not (rasterizer.edge_ties(vs, faces, np.argwhere(differ)).all()
+                and rasterizer.edge_ties(vs, sub, np.argwhere(face_differ)).all()):
+            raise AssertionError("[debug] TextureRenderer masks differ off an edge tie")
+        ties += differ.sum() + face_differ.sum()
+        keep = torch.from_numpy(~differ)
+        image_err = max(image_err, (images[b].cpu()[:, keep] - want[0][b][:, keep]).abs().max()
+                        .item())
+    inside = not (face & ~masks).any().item()
+    shares = [masks.float().mean().item(), face.float().mean().item()]
+    print(f"[debug] TextureRenderer {tuple(images.shape)}: {raster_launches} z-buffer launches "
+          f"for {frames} frames, masks_all share {shares[0]:.4f}, face mask share "
+          f"{shares[1]:.4f}, face mask inside masks_all {inside}; card vs CPU: {int(ties)} "
+          f"mask pixels differ (all edge ties), images max abs err {image_err:.3g} (limit "
+          f"{TEXTURE_TOL})")
+    if not torch.isfinite(images).all() or min(shares) == 0.0 or not inside:
+        raise AssertionError("[debug] TextureRenderer: images not finite or masks wrong")
+    if raster_launches != 2 * frames or image_err > TEXTURE_TOL:
+        raise AssertionError(f"[debug] TextureRenderer: {raster_launches} z-buffer launches, "
+                             f"image error {image_err:.3g}")
+    return {"point_launches": point_launches, "raster_launches": raster_launches}
+
+
+def phase_evaluation(dev: torch.device, flame_data: dict, exact: np.ndarray,
+                     int8: np.ndarray, audio: np.ndarray) -> dict:
+    """evaluate_motion on the card against a CPU run, and a clip against itself."""
+    flame = FlameModel(flame_data).to(dev)
+    card = evaluation.evaluate_motion(exact, int8, flame, audio=audio, device=dev)
+    cpu = evaluation.evaluate_motion(exact, int8, FlameModel(flame_data), audio=audio,
+                                     device="cpu")
+    same = evaluation.evaluate_motion(exact, exact, flame, device=dev)
+    counts = ("frames", "lip_vertices", "upper_vertices")
+    diff = {k: abs(card[k] - cpu[k]) for k in cpu if k not in counts}
+    print(f"[eval] exact vs int8 motions on the card: {json.dumps(card)}; |card - CPU| "
+          + ", ".join(f"{k} {d:.3g}" for k, d in diff.items())
+          + f" (limits rtol {EVAL_RTOL}, atol {EVAL_ATOL}); a clip against itself: lve "
+          f"{same['lve']}, fdd {same['fdd']}")
+    if (card.keys() != cpu.keys() or any(card[k] != cpu[k] for k in counts)
+            or any(d > EVAL_ATOL + EVAL_RTOL * abs(cpu[k]) for k, d in diff.items())
+            or not all(map(math.isfinite, card.values()))):
+        raise AssertionError(f"[eval] card {card} vs CPU {cpu}")
+    if same["lve"] != 0.0 or card["lve"] <= 0.0:
+        raise AssertionError(f"[eval] LVE {same['lve']} for a clip against itself, "
+                             f"{card['lve']} exact vs int8")
+    return card
+
+
+def phase_sort_times(dev: torch.device, avatar_keys: torch.Tensor) -> dict:
+    """CUDA-event times of the sort at the avatar frame's key count and at
+    2^21: the kernel alone, the wrapper, the plain version, torch.sort, the
+    bound. Returns the kernels-line fields at the avatar frame's count."""
+    out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for tag, keys in (("avatar frame", avatar_keys), ("2^21", full_range_keys(1 << 21, 230, dev))):
+        n, p = keys.shape[0], sort.padded_length(keys.shape[0])
+        scratch = torch.empty(p, dtype=torch.int32, device=dev)
+        launched = ctypes.c_int(0)
+        alone = cuda_ms(lambda: sort._LIB.artalk_sort_keys(keys.data_ptr(), n, scratch.data_ptr(),
+                                                           p, stream, ctypes.byref(launched)), 20)
+        before = sort.CUDA_LAUNCHES
+        sort.sort_keys(keys)
+        cuda_launches = sort.CUDA_LAUNCHES - before
+        wrapper = cuda_ms(lambda: sort.sort_keys(keys), 20)
+        plain = cuda_ms(lambda: sort.sort_keys_plain(keys), 3)
+        library = cuda_ms(lambda: torch.sort(keys), 20)
+        bound = 8 * n / HBM_BYTES_PER_S * 1e3
+        print(f"[times] sort {tag} ({n} keys, padded to {p}, {cuda_launches} CUDA "
+              f"launches a sort, {launched.value} reported by the entry point alone): wrapper {wrapper:.5f} ms, kernel alone {alone:.5f}, plain "
+              f"{plain:.5f}, torch.sort {library:.5f}, bound {bound:.5f} ms (8 bytes a key "
+              f"over 3.35 TB/s); the kernel alone reaches {bound / alone:.4f} of the bound")
+        out[tag] = {"ms": wrapper, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+                    "library_ms": library, "kernel_only_ms": alone,
+                    "cuda_launches_per_sort": cuda_launches}
+        if cuda_launches != launched.value or cuda_launches < 1:
+            raise AssertionError(f"[times] sort {tag}: the wrapper counted {cuda_launches} "
+                                 f"CUDA launches, the entry point {launched.value}")
+    profile_calls(lambda: sort.sort_keys(avatar_keys), f"sort of {avatar_keys.shape[0]} keys")
+    return out["avatar frame"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1555,7 +1826,8 @@ def main() -> int:
     enc_err = phase_encoder_kernel(model, enc_packs)
     times = phase_times(model, ar_packs, enc_packs)
     del engine, model, ar_packs, enc_packs
-    splat = phase_gaga_all(dev, audio, motions)
+    splat, gaga_sorts, splat_scenes = phase_gaga_all(dev, audio, motions)
+    phase_sort_path(splat_scenes["avatar"])
     torch.cuda.empty_cache()
 
     flash_err = phase_flash_kernel(dev)
@@ -1570,6 +1842,12 @@ def main() -> int:
         mimi[mode] = phase_mimi(mode, dev, audio)
     flash_times = phase_flash_times(dev, exact_ms)
 
+    scene_keys = {f"{scene} scene": instance_keys(args) for scene, args in splat_scenes.items()}
+    sort_err = phase_sort_kernel(dev, scene_keys)
+    debug = phase_debug_renderers(dev, flame_data, motions)
+    phase_evaluation(dev, flame_data, motions, modes["int8"]["motions"], audio)
+    sort_times = phase_sort_times(dev, scene_keys["avatar scene"])
+
     print(f"[summary] {smi}: inference ms/window by mode "
           + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())
           + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; GAGAvatar ms/frame "
@@ -1578,7 +1856,9 @@ def main() -> int:
                                                      for m, v in flash.items())
           + "; HuBERT ms/call flash " + ", ".join(f"{v['flash']:.2f}" for v in hubert.values())
           + "; Mimi ms/window " + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in mimi.items())
-          + f"; whole run {time.perf_counter() - t_start:.1f} s")
+          + f"; sort kernel {sort_times['ms']:.4f} ms a frame ({gaga_sorts} sorts in 250 exact "
+          f"GAGAvatar frames; debug renderers {debug}); whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": "rasterize", "route": "cuda",
                 "source": "artalk_tpu_torch/csrc/rasterizer.cu",
                 "replaces": "artalk_tpu/ops/rasterizer.py:196",
@@ -1606,6 +1886,10 @@ def main() -> int:
                         "replaces": "artalk_tpu/ops/attention.py:97",
                         "launches": flash[mode]["launches"]["flash"],
                         "max_abs_err": flash_err[tag], **flash_times[tag]})
+    kernels.append({"name": "sort_keys", "route": "cuda",
+                    "source": "artalk_tpu_torch/csrc/sort.cu",
+                    "replaces": "tools/exp_pallas_sort.py:106", "launches": gaga_sorts,
+                    "max_abs_err": sort_err, **sort_times})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

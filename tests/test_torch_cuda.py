@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
-rasterizer, the AR block stack, the encoder block stack, the gaussian splat
-and flash attention.
+rasterizer, the AR block stack, the encoder block stack, the gaussian splat,
+flash attention and the int32 key sort.
 
 Marked ``cuda``: skipped without an NVIDIA GPU. This file imports neither jax
 nor artalk_tpu, so it also runs on a GPU machine without them; there, skip
@@ -22,6 +22,9 @@ a pixel by one gaussian, at most T_EPS times its largest color (colors in
 order than the plain version's matmuls: float32 outputs are held to
 tests/test_attention.py's 2e-5 and gradients to its 3e-5; bf16 outputs, a
 float32 result rounded once on each side, to 1 bf16 ulp of the largest value.
+The sort kernel must equal both sort_keys_plain and torch.sort exactly, and
+the splat prepass through it must give the instance lists that torch.sort
+gives.
 """
 
 import math
@@ -38,6 +41,7 @@ from artalk_tpu_torch.ops import attention as tatt
 from artalk_tpu_torch.ops import encoder_block_stack as teb
 from artalk_tpu_torch.ops import gsplat as tgs
 from artalk_tpu_torch.ops import rasterizer as tr
+from artalk_tpu_torch.ops import sort as tsort
 
 PACK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
@@ -313,3 +317,55 @@ def test_flash_attention_rejects_bad_inputs(cuda):
         tatt.flash_attention(q, q[..., :32], q)
     with pytest.raises(ValueError, match="bias"):
         tatt.flash_attention(q, q, q, torch.zeros((8, 8)))
+
+
+def _sort_keys(rng, n):
+    """Full-range int32 keys with duplicates and both ends."""
+    keys = rng.integers(-(2 ** 31), 2 ** 31 - 1, size=n, dtype=np.int64, endpoint=True)
+    if n >= 4:
+        keys[: n // 4] = keys[n // 4: 2 * (n // 4)]
+        keys[0], keys[-1] = -(2 ** 31), 2 ** 31 - 1
+    return torch.from_numpy(keys.astype(np.int32))
+
+
+@pytest.mark.cuda
+def test_sort_matches_plain_and_torch_sort(cuda):
+    """Also the CUDA launches the entry point reports: one tile sort, then per
+    stage above the 2048-key tile its global substages and one merge."""
+    rng = np.random.default_rng(6)
+    cuda_launches = {0: 0, 1: 1, 2: 1, 3: 1, 2047: 1, 2048: 1, 2049: 3, 5000: 6,
+                     1 << 16: 21, 100_003: 28, 1 << 20: 55}
+    for n, want_launches in cuda_launches.items():
+        keys = _sort_keys(rng, n).to(cuda)
+        before, before_cuda = tsort.LAUNCHES, tsort.CUDA_LAUNCHES
+        got = tsort.sort_keys(keys)
+        assert tsort.LAUNCHES == before + (n > 0)
+        assert tsort.CUDA_LAUNCHES == before_cuda + want_launches, n
+        want = tsort.sort_keys_plain(keys)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        assert torch.equal(got, want) and torch.equal(got, torch.sort(keys).values), n
+
+
+@pytest.mark.cuda
+def test_sort_rejects_bad_inputs(cuda):
+    with pytest.raises(ValueError, match="int32"):
+        tsort.sort_keys(torch.zeros(8, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="1-D"):
+        tsort.sort_keys(torch.zeros((2, 4), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tsort.sort_keys(torch.zeros(16, dtype=torch.int32, device=cuda)[::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [128, 512])
+def test_prepass_sort_matches_torch_sort(cuda, size, monkeypatch):
+    for scene in _splat_scenes():
+        args = [torch.from_numpy(a).to(cuda) for a in scene]
+        before = tsort.LAUNCHES
+        _, _, inst, offsets = tgs.prepass(*args, size=size)
+        assert tsort.LAUNCHES == before + (inst.numel() > 0)
+        with monkeypatch.context() as m:
+            m.setattr(tgs, "sort_keys", lambda k: torch.sort(k).values)
+            _, _, want_inst, want_offsets = tgs.prepass(*args, size=size)
+        assert torch.equal(inst, want_inst) and torch.equal(offsets, want_offsets)

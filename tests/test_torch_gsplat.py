@@ -102,6 +102,21 @@ def test_plain_matches_pallas_interpret(name):
         assert not got[:, 0, 64].any() and got[0, 64, 64] > 0.5
 
 
+def test_key_overflow_raises():
+    """The int32 key tile << rank_bits | rank must fit: at 8192 px (32,768
+    tiles) 2^15 gaussians fit and one more does not, where the JAX prepass's
+    own check fails too."""
+    size, n = 8192, 1 << 15
+    with pytest.raises(AssertionError, match="key overflow"):
+        jgs._build_instances({"depth": jnp.zeros(n + 1)}, None, None, size)
+    with pytest.raises(ValueError, match="overflow"):
+        tgs._build_instances({"depth": torch.zeros(n + 1)}, None, size)
+    zeros = torch.zeros(n)
+    comp = {"depth": zeros, "mx": zeros, "my": zeros, "radius": zeros}
+    inst, offsets = tgs._build_instances(comp, zeros, size)   # nothing valid, no overflow
+    assert inst.numel() == 0 and offsets.shape == ((size // 128) * (size // 16) + 1,)
+
+
 def test_plain_counts_pairs():
     """composite_plain counts the (pixel, instance) pairs it evaluates and
     composites (chip_smoke.py's operations bound): every pixel of a listed

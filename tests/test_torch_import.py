@@ -33,7 +33,8 @@ sys.exit(1 if bad else 0)
 def test_import_leaves_jax_out():
     """Every module of the port, and chip_smoke.py, import without jax or
     artalk_tpu (whose __init__ imports jax); the GAGAvatar modules, the
-    flash-attention wrapper, HuBERT and Mimi are among them."""
+    flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers
+    and the evaluation metrics are among them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -42,7 +43,9 @@ def test_import_leaves_jax_out():
             for m in ("avatar", "dino", "generators", "style_unet", "watermark")}
     assert gaga | {"artalk_tpu_torch.ops.gsplat", "artalk_tpu_torch.ops.resize2d",
                    "artalk_tpu_torch.ops.attention", "artalk_tpu_torch.models.hubert",
-                   "artalk_tpu_torch.models.mimi"} <= imported
+                   "artalk_tpu_torch.models.mimi", "artalk_tpu_torch.ops.sort",
+                   "artalk_tpu_torch.models.renderer_extras",
+                   "artalk_tpu_torch.evaluation"} <= imported
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

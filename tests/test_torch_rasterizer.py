@@ -43,18 +43,6 @@ def _scene(name):
     return verts, np.array([[3, 4, 5], [0, 1, 2]], np.int32), 64, 128
 
 
-def _edge_ties(verts, faces, pix, tol=1e-6):
-    """For pixels ``pix`` (N, 2) of (y, x): does the centre lie on an edge of
-    a face (one barycentric within ``tol`` of 0 in float64, none below)?"""
-    a0, a1, _ = tr.face_planes(torch.from_numpy(verts).double(), torch.from_numpy(faces))
-    p = torch.from_numpy(pix[:, ::-1] + 0.5)                # (N, 2) x, y
-    w0 = p[:, 0:1] * a0[:, 0] + p[:, 1:2] * a0[:, 1] + a0[:, 2]
-    w1 = p[:, 0:1] * a1[:, 0] + p[:, 1:2] * a1[:, 1] + a1[:, 2]
-    ws = torch.stack([w0, w1, 1.0 - w0 - w1], dim=-1)       # (N, F, 3)
-    on_edge = (ws.amin(-1).abs() <= tol) & (ws >= -tol).all(-1)
-    return on_edge.any(-1).numpy()
-
-
 @pytest.mark.parametrize("name", ["random", "padding", "empty", "z_order"])
 def test_plain_matches_jax_kernel(name):
     verts, faces, h, w = _scene(name)
@@ -65,7 +53,8 @@ def test_plain_matches_jax_kernel(name):
     assert ft.dtype == np.int32 and zt.dtype == np.float32 and ft.shape == (h, w)
     differ = ft != fj
     tie = np.zeros_like(differ)
-    tie[differ] = _edge_ties(verts, faces, np.argwhere(differ))
+    tie[differ] = tr.edge_ties(torch.from_numpy(verts), torch.from_numpy(faces),
+                               np.argwhere(differ)).numpy()
     np.testing.assert_array_equal((ft == -1)[~tie], (fj == -1)[~tie])
     assert (differ & ~tie).mean() < 1e-3
     if name != "z_order":  # no pixel centre on an edge: the stated tolerances hold everywhere
