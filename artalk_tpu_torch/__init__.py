@@ -26,7 +26,8 @@ stack (``csrc/ar_block_stack.cu``), the wav2vec2 encoder stack
 (``csrc/encoder_block_stack.cu``), the 32-channel gaussian splat
 (``csrc/gsplat.cu``), flash attention (``csrc/flash_attention.cu``) and the
 splat prepass's int32 key sort (``csrc/sort.cu``); everything else on the
-paths is plain PyTorch. On the CPU every kernel takes its plain version, which the tests
+paths is plain PyTorch, and host media work (resampling, the Y4M writer) is
+the native C++ runtime of ``runtime/``, built with g++. On the CPU every kernel takes its plain version, which the tests
 (``python -m pytest tests/test_torch_*.py``) hold against the JAX package.
 ``ROADMAP.md`` lists what is still to be ported.
 """

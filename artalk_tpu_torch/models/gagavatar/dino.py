@@ -82,7 +82,8 @@ class DinoViT(nn.Module):
     def _embed(self, images: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) -> (B, 1 + N, d) with cls + pos embeddings."""
         pe = self.patch_embed
-        x = F.conv2d(images, pe.w, stride=self.cfg.patch_size)
+        with tnn.no_tf32():
+            x = F.conv2d(images, pe.w, stride=self.cfg.patch_size)
         b, d, gh, gw = x.shape
         x = x.reshape(b, d, gh * gw).transpose(1, 2) + pe.b
         x = torch.cat([self.cls_token.expand(b, 1, d), x], dim=1)
@@ -179,9 +180,11 @@ class DinoDPT(nn.Module):
             b, _, d = f.shape
             fmap = self.projects[i](f.transpose(1, 2).reshape(b, d, ph, pw))
             if i == 0:
-                fmap = F.conv_transpose2d(fmap, self.resize0.w, self.resize0.b, stride=4)
+                with tnn.no_tf32():
+                    fmap = F.conv_transpose2d(fmap, self.resize0.w, self.resize0.b, stride=4)
             elif i == 1:
-                fmap = F.conv_transpose2d(fmap, self.resize1.w, self.resize1.b, stride=2)
+                with tnn.no_tf32():
+                    fmap = F.conv_transpose2d(fmap, self.resize1.w, self.resize1.b, stride=2)
             elif i == 3:
                 fmap = self.resize3(fmap, stride=2, padding=1)
             img_small = resize_antialias(normed, fmap.shape[-2], fmap.shape[-1])

@@ -69,18 +69,6 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return x * torch.cos(emb) + torch.cat([-x2, x1], dim=-1) * torch.sin(emb)
 
 
-class _no_tf32:
-    """Context: TF32 off for CUDA matmuls and cuDNN convolutions, restored on
-    exit."""
-
-    def __enter__(self):
-        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        tnn.full_float32()
-
-    def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
-
-
 class _ResBlock(nn.Module):
     def __init__(self, dim: int, hidden: int, k: int):
         super().__init__()
@@ -220,7 +208,7 @@ class MimiEncoder(nn.Module):
 
     def encode_codes(self, audio_24k: torch.Tensor) -> torch.Tensor:
         """(B, T_samples) 24 kHz -> RVQ codes (B, num_quantizers, T_frames)."""
-        with _no_tf32():
+        with tnn.no_tf32():
             emb = self.seanet_encode(audio_24k)
             emb = self.transform(emb.transpose(1, 2)).transpose(1, 2)
             emb = _causal_conv(self.downsample, emb, stride=2, pad_mode="replicate")
@@ -236,7 +224,7 @@ class MimiEncoder(nn.Module):
 
     def forward(self, audio_16k: torch.Tensor) -> torch.Tensor:
         """16 kHz audio (B, T) -> (B, T_frames, hidden) embeddings at 12.5 Hz."""
-        with _no_tf32():
+        with tnn.no_tf32():
             codes = self.encode_codes(resample_16k_to_24k(audio_16k))
             return self.decode_codes(codes).transpose(1, 2)
 
@@ -264,6 +252,6 @@ def resample_16k_to_24k(audio: torch.Tensor) -> torch.Tensor:
     up = audio.new_zeros((b, 1, (t - 1) * 3 + 1))
     up[:, 0, ::3] = audio
     half_len = (filt.shape[0] - 1) // 2
-    with _no_tf32():
+    with tnn.no_tf32():
         y = F.conv1d(F.pad(up, (half_len, half_len)), filt[None, None], stride=2)
     return y[:, 0, : -(-t * 3 // 2)]

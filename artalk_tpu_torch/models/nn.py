@@ -99,11 +99,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     On the CPU a bfloat16 convolution runs in float32 on the bf16 values and
     is rounded once, then the bias is added in bf16, as XLA computes it:
     PyTorch's CPU bf16 (grouped) convolution loses most of its precision. On
-    the card cuDNN computes bf16 as it is."""
-    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
-        y = F.conv2d(x.float(), w.float(), None, stride, padding, 1, groups).to(x.dtype)
-        return y if b is None else y + b[:, None, None]
-    return F.conv2d(x, w, b, stride, padding, 1, groups)
+    the card cuDNN computes bf16 as it is. TF32 is off (``no_tf32``)."""
+    with no_tf32():
+        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+            y = F.conv2d(x.float(), w.float(), None, stride, padding, 1, groups).to(x.dtype)
+            return y if b is None else y + b[:, None, None]
+        return F.conv2d(x, w, b, stride, padding, 1, groups)
 
 
 class Conv2d(nn.Module):
@@ -230,6 +231,20 @@ def full_float32() -> None:
     (greedy code bits, the GAGAvatar ``exact`` mode) need full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+class no_tf32:
+    """Context: TF32 off for CUDA matmuls and cuDNN convolutions, the caller's
+    flags restored on exit. Every float32 convolution of the port runs inside
+    it, so its result does not depend on what the caller imported or set
+    (torch's default lets cuDNN convolve float32 in TF32)."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        full_float32()
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:

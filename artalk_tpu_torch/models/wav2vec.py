@@ -50,10 +50,12 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     """``F.conv1d``; bfloat16 inputs are convolved in float32 and rounded
     once, then the bias is added in bfloat16, as XLA computes a bf16
     convolution. (PyTorch's CPU bf16 grouped convolution loses most of its
-    precision, and the plain versions must run on the CPU too.)"""
-    if x.dtype != torch.bfloat16:
-        return F.conv1d(x, w, b, **kwargs)
-    y = F.conv1d(x.float(), w.float(), **kwargs).to(torch.bfloat16)
+    precision, and the plain versions must run on the CPU too.) TF32 is off
+    (``nn.no_tf32``), as in the JAX reference."""
+    with tnn.no_tf32():
+        if x.dtype != torch.bfloat16:
+            return F.conv1d(x, w, b, **kwargs)
+        y = F.conv1d(x.float(), w.float(), **kwargs).to(torch.bfloat16)
     return y if b is None else y + b[:, None]
 
 

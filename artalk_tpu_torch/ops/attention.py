@@ -6,10 +6,12 @@ the JAX function: logits ``(q * scale) . k^T + bias`` in float32, an online
 softmax whose running max starts at ``NEG_INF`` (-1e30, so a row whose every
 key is masked returns 0 where a plain softmax gives NaN), ``P . V`` with p and
 v in float32, and ``acc / max(l, 1e-30)`` in q's dtype. A CUDA tensor goes
-through the kernel in ``csrc/flash_attention.cu``, a CPU tensor through
+through the kernel in ``csrc/flash_attention.cu`` (tensor-core products at
+float32 accuracy: split bf16 / TF32 operands), a CPU tensor through
 ``flash_attention_plain``; for a CUDA tensor it launches the kernel or
-raises. The caller's bias is read through its strides, never broadcast into
-a (B, H, Lq, Lk) tensor.
+raises. When no input needs a gradient the kernel is launched directly,
+else through an ``autograd.Function``. The caller's bias is read through its
+strides, never broadcast into a (B, H, Lq, Lk) tensor.
 
 The gradient, as the JAX custom VJP's, recomputes the float32 attention in
 plain torch (the TPU kernel has no backward kernel, so neither does this one):
@@ -38,7 +40,7 @@ LAUNCHES = 0
 
 SOURCE = CSRC / "flash_attention.cu"
 BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
-_LIB = None
+_FN = None   # the bound entry point of the loaded library
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,15 +60,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def build() -> float:
     """Build (or reuse) and load the kernel's shared library. Returns the
     seconds spent, 0.0 when it was already loaded."""
-    global _LIB, BUILD_REPORT
-    if _LIB is not None:
+    global _FN, BUILD_REPORT
+    if _FN is not None:
         return 0.0
     lib, seconds, BUILD_REPORT = build_library(SOURCE)
     fn = lib.artalk_flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
                    + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _LIB = lib
+    _FN = fn
     return seconds
 
 
@@ -93,15 +95,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         if bias.device != q.device:
             raise ValueError("flash_attention: bias must be on q's device")
-        bias = torch.broadcast_to(bias.float(), (b, h, lq, lk))  # a view: strides 0 where broadcast
+        # a view, strides 0 where broadcast (.float() copies only another dtype)
+        bias = torch.broadcast_to(bias.float(), (b, h, lq, lk))
         strides = bias.stride()
     build()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _LIB.artalk_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), b * h, h, lq, lk, hd, scale, *strides, _DTYPES[q.dtype], stream)
+    # the current stream's handle as an int, without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    err = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+              out.data_ptr(), b * h, h, lq, lk, hd, scale, *strides, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -139,4 +142,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, bias, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _FlashAttention.apply(q, k, v, bias, float(scale))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return _FlashAttention.apply(q, k, v, bias, float(scale))
+    return _launch(q, k, v, bias, float(scale))

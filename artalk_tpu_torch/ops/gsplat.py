@@ -11,7 +11,7 @@ it is XLA in JAX:
    instance per 16x128-pixel tile of its bbox-anchored 2x4-tile window that
    its clamped bbox meets (``_slot_validity``); the int32 instance keys
    ``tile << rank_bits | depth rank`` are sorted by ``ops/sort.sort_keys``
-   (the bitonic CUDA kernel of ``csrc/sort.cu`` for CUDA tensors) and
+   (the radix-sort CUDA kernel of ``csrc/sort.cu`` for CUDA tensors) and
    ``searchsorted`` gives each tile's segment. Instances are counted per
    frame, so there is no static budget: this is the JAX package's exact path
    (``max_instances=None``).

@@ -1,5 +1,5 @@
-"""Ascending sort of int32 keys: a hand-written CUDA bitonic network and its
-plain version.
+"""Ascending sort of int32 keys: a hand-written CUDA radix sort and its plain
+version.
 
 Counterpart of the Pallas bitonic sort in ``tools/exp_pallas_sort.py``
 (``bitonic_sort`` / ``_bitonic_kernel``), which the JAX package wrote for the
@@ -8,13 +8,16 @@ payload-free instance-key sort of the splat prepass (``jax.lax.sort`` in
 ``_build_instances``. The keys are compared as signed int32.
 
 ``sort_keys`` sorts a contiguous 1-D int32 tensor of any length n: CUDA
-tensors go through the kernel in ``csrc/sort.cu``, CPU tensors through
-``sort_keys_plain``, any other device raises. Both pad the keys to
-P = 2^ceil(log2 max(n, 2)) with INT32_MAX (which sorts last) and run the same
-network: for k = 2, 4, ..., P and j = k/2, ..., 1, the keys at i and i ^ j
-are exchanged so that the smaller comes first where bit k of i is 0 and last
-where it is 1. The plain version repeats that arithmetic and is independent
-of ``torch.sort``.
+tensors go through the kernel in ``csrc/sort.cu`` (an LSD radix sort of the
+sign-flipped keys, 8 bits a pass, no padding; a pass whose digit is the same
+for every key is skipped on the device), CPU tensors through
+``sort_keys_plain``, any other device raises. A sort's output is a
+permutation of its input in ascending order, so the two give the same keys
+by different algorithms. ``sort_keys_plain`` is the TPU kernel's bitonic
+network: it pads the keys to P = 2^ceil(log2 max(n, 2)) with INT32_MAX (which
+sorts last), and for k = 2, 4, ..., P and j = k/2, ..., 1 exchanges the keys
+at i and i ^ j so that the smaller comes first where bit k of i is 0 and last
+where it is 1. It is independent of ``torch.sort``.
 
 The kernel's shared library is built with nvcc at first use (``ops/_nvcc.py``).
 """
@@ -28,13 +31,13 @@ import torch
 from ._nvcc import CSRC, build_library
 
 INT32_MAX = 2 ** 31 - 1
-MAX_KEYS = 2 ** 30
+MAX_KEYS = 2 ** 30 - 1   # the look-back status words keep 30 bits of count
 
 # Calls of sort_keys() that launched the kernel in this process (one per call,
 # whatever the number of CUDA launches inside it).
 LAUNCHES = 0
 # CUDA launches those calls made, as the entry point of csrc/sort.cu reports
-# them (55 for one call at P = 2^20).
+# them (6 for one call with n > 0: init, histogram, one per 8-bit digit).
 CUDA_LAUNCHES = 0
 
 SOURCE = CSRC / "sort.cu"
@@ -62,10 +65,11 @@ def build() -> float:
     if _LIB is not None:
         return 0.0
     lib, seconds, BUILD_REPORT = build_library(SOURCE)
-    fn = lib.artalk_sort_keys
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
+    lib.artalk_sort_keys.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                                     + [ctypes.POINTER(ctypes.c_int)])
+    lib.artalk_sort_keys.restype = ctypes.c_int
+    lib.artalk_sort_meta_words.argtypes = [ctypes.c_int]
+    lib.artalk_sort_meta_words.restype = ctypes.c_longlong
     _LIB = lib
     return seconds
 
@@ -86,23 +90,24 @@ def sort_keys(keys: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return keys.clone()
     build()
-    p = padded_length(n)
-    scratch = torch.empty(p, dtype=torch.int32, device=dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    # the ping-pong buffer and the histogram / look-back words, in one allocation
+    work = torch.empty(n + _LIB.artalk_sort_meta_words(n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     launched = ctypes.c_int(0)
-    err = _LIB.artalk_sort_keys(keys.data_ptr(), n, scratch.data_ptr(), p, stream,
-                                ctypes.byref(launched))
+    err = _LIB.artalk_sort_keys(keys.data_ptr(), n, out.data_ptr(), work.data_ptr(),
+                                work[n:].data_ptr(), stream, ctypes.byref(launched))
     if err != 0:
         raise RuntimeError(f"sort kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     CUDA_LAUNCHES += launched.value
-    return scratch[:n]
+    return out
 
 
 def sort_keys_plain(keys: torch.Tensor) -> torch.Tensor:
-    """Plain-torch version of ``sort_keys``: the same padding and network,
-    each substage a gather of the partner at ``i ^ j`` and a min/max by
-    direction."""
+    """Plain-torch version of ``sort_keys``: the TPU kernel's padding and
+    bitonic network, each substage a gather of the partner at ``i ^ j`` and a
+    min/max by direction."""
     _check(keys)
     n = keys.shape[0]
     p = padded_length(n)

@@ -1,8 +1,8 @@
 """Host-side audio I/O: WAV loading and resampling to the model's 16 kHz mono.
 
-Copied from ``artalk_tpu/utils/audio.py``. Resampling is scipy's polyphase
-``resample_poly`` (the JAX package's fallback when its native C++ resampler
-is not built; that runtime is not ported yet).
+Copied from ``artalk_tpu/utils/audio.py``. Resampling goes through the
+port's native polyphase resampler (``runtime/media.py``; scipy's
+``resample_poly`` when g++ is missing), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -35,15 +35,16 @@ def load_wav(path: str) -> Tuple[np.ndarray, int]:
 
 
 def resample(audio: np.ndarray, orig_sr: int, target_sr: int = TARGET_SR) -> np.ndarray:
-    """Polyphase resample along the last axis."""
+    """Polyphase resample along the last axis (the native C++ kernel when
+    built, scipy otherwise -- see ``runtime/media.py``)."""
     if orig_sr == target_sr:
         return audio
-    from scipy.signal import resample_poly
+    from ..runtime import media
 
     g = math.gcd(orig_sr, target_sr)
     up, down = target_sr // g, orig_sr // g
     flat = np.asarray(audio, np.float32).reshape(-1, audio.shape[-1])
-    out = np.stack([resample_poly(row, up, down).astype(np.float32) for row in flat])
+    out = np.stack([media.resample_poly(row, up, down) for row in flat])
     return out.reshape(audio.shape[:-1] + (out.shape[-1],)).astype(np.float32)
 
 

@@ -5,11 +5,12 @@ that degrades gracefully:
 
 1. PyAV (if installed) -- H.264 + AAC, same settings as the reference.
 2. ffmpeg CLI (if on PATH) -- same codecs via a rawvideo pipe.
-3. Fallback: .npz of frames + audio (lossless, always available; the JAX
+3. Y4M (``runtime/media.py``) -- codec-free YUV4MPEG2 playable by
+   mpv/ffplay/VLC, the audio as a sibling 16-bit .wav.
+4. Fallback: .npz of frames + audio (lossless, always available; the JAX
    package's ``read_video_npz`` reads it).
 
-The JAX package's native Y4M tier (its C++ runtime) is not ported yet, and
-only the renderer's yuv420p planes are written (the JAX writer also takes RGB).
+Only the renderers' yuv420p planes are written (the JAX writer also takes RGB).
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ def write_video(frames: np.ndarray, path: str, fps: float = 25.0,
     if shutil.which("ffmpeg"):
         _write_ffmpeg(frames, path, fps, audio, sample_rate)
         return path
+    try:
+        return _write_y4m_wav(frames, path, fps, audio, sample_rate)
+    except OSError as e:
+        print(f"[artalk_tpu_torch] y4m writer failed ({e}); falling back to npz")
     alt = os.path.splitext(path)[0] + ".npz"
     np.savez_compressed(alt, frames=frames, fps=fps,
                         audio=audio if audio is not None else np.zeros(0, np.float32),
@@ -117,3 +122,37 @@ def _write_ffmpeg(frames, path, fps, audio, sample_rate):
         os.remove(audio_file)
     if proc.returncode != 0:
         raise RuntimeError(f"ffmpeg failed with code {proc.returncode}")
+
+
+def _write_y4m_wav(frames, path, fps, audio, sample_rate) -> str:
+    """Y4M video + sibling .wav audio (no codecs required), as the JAX
+    package's ``_write_y4m_wav`` writes them."""
+    import wave
+
+    from ..runtime import media
+
+    out = os.path.splitext(path)[0] + ".y4m"
+    media.write_y4m_planar(out, frames, fps=fps)
+    if audio is not None:
+        pcm = np.clip(np.asarray(audio, np.float32), -1.0, 1.0)
+        with wave.open(os.path.splitext(path)[0] + ".wav", "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(sample_rate)
+            f.writeframes((pcm * 32767.0).astype(np.int16).tobytes())
+    return out
+
+
+def read_y4m(path: str) -> tuple:
+    """(frames (T, H * 3 // 2, W) uint8 planar yuv420p, fps) of a YUV4MPEG2
+    file as ``write_y4m_planar`` writes it."""
+    with open(path, "rb") as f:
+        header = f.readline().split()
+        body = f.read()
+    w, h = int(header[1][1:]), int(header[2][1:])
+    num, den = (int(x) for x in header[3][1:].split(b":"))
+    frame = 6 + w * h * 3 // 2   # b"FRAME\n" and the planes
+    if len(body) % frame:
+        raise ValueError(f"{path}: {len(body)} bytes are not whole {w}x{h} frames")
+    frames = np.frombuffer(body, np.uint8).reshape(-1, frame)[:, 6:]
+    return frames.reshape(-1, h * 3 // 2, w), num / den

@@ -12,7 +12,8 @@ renderers, and the motion metrics.
 Phases (any failure raises and exits non-zero; no phase catches its own):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the six kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
-     once) and print the seconds and nvcc's register / shared-memory report;
+     once) and print the seconds and nvcc's register / shared-memory report
+     (up to 16 lines each);
   3. kernel vs plain version on the synthetic FLAME head at 512x512, 4 frames:
      face ids agree on >= 99.9 % of pixels, background exactly, zbuf to
      rtol 1e-4 where both hit; ms per frame of both;
@@ -108,16 +109,20 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      under MIMI_TIE of the distance);
  18. flash-attention times by CUDA events at both sites and over
      tools/bench_flash_attention.py's sweep (B 1, H 16, hd 64, 256 ... 4096):
-     the wrapper, the kernel alone, the plain version and the library
-     yardstick torch.nn.functional.scaled_dot_product_attention (TF32 off;
-     the backend its dispatcher picks), and the bound (the larger of
-     q, k, v and out over 3.35 TB/s and the two products' FLOPs over 67
-     TFLOP/s fp32, q.k^T at 989 TFLOP/s for bf16 inputs);
- 19. the sort kernel vs sort_keys_plain and torch.sort, bit for bit (0
-     mismatches), on the instance keys of the synthetic_0 avatar's frame and
-     of bench.py's splat scene, and on random full-range int32 keys with
-     duplicates, INT32_MIN and INT32_MAX at n = 0, 1, 2047, 2048, 2049,
-     1,000,003, 2^20 and 2^21; one wrapper launch per call with n > 0;
+     the wrapper under no_grad (the direct launch), the kernel alone, the
+     plain version and the library yardstick
+     torch.nn.functional.scaled_dot_product_attention (TF32 off; the backend
+     its dispatcher picks), and the bound (flash_bound: the larger of q, k, v
+     and out over 3.35 TB/s and the products at the cheapest rate that keeps
+     the function's precision: bf16 three bf16 products at 989 TFLOP/s,
+     float32 three TF32 products per product at 495 TFLOP/s); a kernel faster
+     than its bound fails;
+ 19. the sort kernel (an LSD radix sort) vs sort_keys_plain (the bitonic
+     network) and torch.sort, bit for bit (0 mismatches), on the instance
+     keys of the synthetic_0 avatar's frame and of bench.py's splat scene, and
+     on random full-range int32 keys with duplicates, INT32_MIN and INT32_MAX
+     at SORT_SIZES; one wrapper launch per call with n > 0, the CUDA launches
+     the entry point counts printed;
  20. the sort on the GAGAvatar path: phase 11 counts at least one sort launch
      per frame, and one avatar frame's prepass (inst, offsets) equals the
      same frame's prepass with torch.sort swapped in for the kernel;
@@ -137,8 +142,14 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
  23. sort times by CUDA events at the avatar frame's key count and at 2^21:
      the kernel alone, through its wrapper, sort_keys_plain and torch.sort
      (the library yardstick, never called by the port), the bound (8 bytes a
-     key over 3.35 TB/s) and the CUDA launches per sort; torch.profiler's
-     device time of each of the kernel's three CUDA kernels per sort.
+     key over 3.35 TB/s) and the CUDA launches per sort (at most
+     SORT_MAX_LAUNCHES); torch.profiler's device time of each of the
+     kernel's CUDA kernels per sort, at both sizes;
+ 24. TF32: tests/tf32_probe.py in a fresh `python3 -c` process that imports
+     only artalk_tpu_torch.models.hubert (TF32 on, torch's default): HuBERT
+     base and wav2vec2's conv frontend equal the same calls after
+     full_float32() within TF32_PROBE_TOL, and the caller's flags are back
+     after the calls.
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -178,6 +189,7 @@ from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.ops import sort
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
+from artalk_tpu_torch.utils.video import read_y4m
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
@@ -185,6 +197,7 @@ IMAGE = 512
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12     # TF32 tensor cores, dense
 MODES = {  # environment of each precision mode of phase 8
     "fused": {"ARTALK_AR_FUSED": "1"},
     "fast": {"ARTALK_AR_PRECISION": "fast"},
@@ -238,7 +251,7 @@ SPLAT_COMPOSITE_FLOP = 67
 # atol (both compute in float32; the sums run in another order), bf16 within
 # 1 bf16 ulp of the largest value (a float32 result rounded once on each side)
 FLASH_F32_TOL = 2e-5
-FLASH_TILE = 64      # keys per tile of csrc/flash_attention.cu at hd <= 64
+FLASH_TILE = 64      # keys per tile of csrc/flash_attention.cu's row-block kernel
 FLASH_SWEEP = (256, 512, 1024, 2048, 4096)   # tools/bench_flash_attention.py's lengths
 FLASH_MODES = {"exact": {}, "fast": {"ARTALK_AR_PRECISION": "fast"},
                "fused": {"ARTALK_AR_FUSED": "1"}}
@@ -256,10 +269,11 @@ MIMI_MODES = {"exact": {}, "int8": {"ARTALK_AR_PRECISION": "int8"}}
 # gap under MIMI_TIE of the distance (float32 on both sides)
 MIMI_CODES_AGREE = 0.9
 MIMI_TIE = 1e-4
-# random key counts of phase 19: both sides of the 2048-key tile, a ragged
-# million, and the padded sizes of the avatar frame (2^20) and of JAX's
-# production budget (2^21)
-SORT_SIZES = (0, 1, 2047, 2048, 2049, 1_000_003, 1 << 20, 1 << 21)
+# random key counts of phase 19: both sides of the bitonic network's 2048-key
+# tile and of the radix kernel's 3840-key tile, a ragged million, and the
+# padded sizes of the avatar frame (2^20) and of JAX's production budget (2^21)
+SORT_SIZES = (0, 1, 2047, 2048, 2049, 3839, 3840, 3841, 1_000_003, 1 << 20, 1 << 21)
+SORT_MAX_LAUNCHES = 13   # CUDA launches a sort may take (csrc/sort.cu takes 6)
 # phase 21: frames rendered by the debug renderers, the point renderer's
 # orbit distance (the 0.22-tall head fills about half of the 60-degree view),
 # its tolerance against the CPU (the splat's 1e-4 on the x 255 scale; the
@@ -277,6 +291,11 @@ TEXTURE_TOL = 1e-4
 # is about 6e-5 there, FDD smaller; the measured gap 2.1e-10, PERF.md, PR 5);
 # the integer keys must be equal
 EVAL_RTOL, EVAL_ATOL = 1e-5, 1e-9
+# phase 24: HuBERT in a fresh process with TF32 left on by default against the
+# same call after full_float32(): the port's convolutions turn TF32 off, so
+# only a float32 algorithm chosen otherwise remains (rounding level); TF32
+# convolutions differ by about 1e-3
+TF32_PROBE_TOL = 1e-5
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -334,7 +353,7 @@ def phase_build() -> None:
         seconds = list(pool.map(lambda m: m.build(), mods))
     for mod, sec in zip(mods, seconds):
         print(f"[build] {os.path.relpath(mod.SOURCE, ROOT)}: {sec:.2f} s")
-        for line in getattr(mod, "BUILD_REPORT", "").splitlines()[:2]:
+        for line in getattr(mod, "BUILD_REPORT", "").splitlines()[:16]:
             print(f"[build]   {line.strip()}")
     print(f"[build] all six in {time.perf_counter() - t0:.2f} s")
 
@@ -448,8 +467,11 @@ def window0_bits(engine: ARTAvatarInferEngine, audio: np.ndarray) -> np.ndarray:
 
 
 def rendered_frames(path: str):
-    """The frame count of a video ``rendering`` wrote: from the .npz it falls
-    back to, None for an encoded video (after checking it is not empty)."""
+    """The frame count of a video ``rendering`` wrote: from the .y4m or .npz
+    it falls back to without PyAV and ffmpeg, None for an encoded video
+    (after checking it is not empty)."""
+    if path.endswith(".y4m"):
+        return read_y4m(path)[0].shape[0]
     if path.endswith(".npz"):
         with np.load(path) as z:
             return z["frames"].shape[0]
@@ -1287,8 +1309,9 @@ def flash_inputs(b: int, h: int, lq: int, lk: int, hd: int, dev: torch.device,
 
 def flash_cases(dev: torch.device):
     """(name, q, k, v, bias, scale) in float32: both model sites,
-    tests/test_attention.py's bias and padding cases, a wholly masked row
-    and the longest sweep length."""
+    tests/test_attention.py's bias and padding cases, a wholly masked row,
+    the longest sweep length and a grid large enough for the row-block
+    kernel."""
     lvl = torch.tensor([0, 1, 1, 2, 2, 2, 3, 3])
     var = torch.cat([torch.zeros(8, 8), torch.where(lvl[:, None] >= lvl[None], 0.0,
                                                     float("-inf"))], dim=1)[None, None]
@@ -1305,6 +1328,13 @@ def flash_cases(dev: torch.device):
     yield ("masked row (1,2,20,70,64)", *flash_inputs(1, 2, 20, 70, 64, dev, seed=8),
            masked.to(dev), 0.125)
     yield "sweep (1,16,4096,64)", *flash_inputs(1, 16, 4096, 4096, 64, dev, seed=9), None, 0.125
+    # more than half a CTA per SM: the row-block kernel (the cases above but the
+    # sweep take the split-keys kernel) with a bias, a ragged tile and a
+    # wholly masked row
+    many = torch.randn((8, 1, 100, 130), generator=torch.Generator().manual_seed(12))
+    many[:, :, 3] = float("-inf")
+    yield ("row blocks (8,20,100,130,64)", *flash_inputs(8, 20, 100, 130, 64, dev, seed=12),
+           many.to(dev), 0.125)
 
 
 def tiled_flash(q, k, v, bias, scale: float, rescale: bool = True,
@@ -1529,14 +1559,22 @@ def phase_mimi(mode: str, dev: torch.device, audio: np.ndarray) -> dict:
 
 def flash_bound(b: int, h: int, lq: int, lk: int, hd: int, dtype: torch.dtype):
     """(bytes ms, operations ms) of one flash call: q, k, v read once and the
-    output written once; q.k^T and P.V at 2 FLOP per multiply-add, P.V at the
-    fp32 rate (p stays float32), q.k^T at the bf16 tensor rate for bf16
-    inputs (their products are exact in a float32 accumulate)."""
+    output written once; each product (q.k^T and P.V, 2 * B * H * Lq * Lk * hd
+    FLOP each) at the rate of the cheapest instruction sequence that keeps
+    the function's precision. bf16 inputs: q.k^T is one bf16 tensor-core
+    product (bf16 x bf16 is exact in float32); P.V takes p in float32, kept
+    to 16 bits as bf16 hi + lo, so two bf16 products; all at 989 TFLOP/s.
+    float32 inputs: three TF32 products per product (hi.hi, hi.lo, lo.hi) at
+    495 TFLOP/s, or one at the 67 TFLOP/s fp32 rate, whichever takes less
+    time."""
     size = torch.tensor([], dtype=dtype).element_size()
     moved = (2 * b * h * lq * hd + 2 * b * h * lk * hd) * size
-    half = 2 * b * h * lq * lk * hd
-    qk_rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
-    return moved / HBM_BYTES_PER_S * 1e3, (half / qk_rate + half / FP32_FLOP_PER_S) * 1e3
+    product = 2 * b * h * lq * lk * hd
+    if dtype == torch.bfloat16:
+        ops_s = 3 * product / BF16_FLOP_PER_S
+    else:
+        ops_s = 2 * min(3 * product / TF32_FLOP_PER_S, product / FP32_FLOP_PER_S)
+    return moved / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -1552,7 +1590,7 @@ def phase_flash_times(dev: torch.device, exact_ms: float) -> dict:
     sweep, beside the plain version, SDPA and the bound. Returns the
     kernels-line fields of the wav2vec site per dtype."""
     out = {}
-    lib = attention._LIB
+    fn = attention._FN
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         sites = [("wav2vec", 16, 199), ("hubert", 12, 199)] + [(f"sweep {n}", 16, n)
                                                                 for n in FLASH_SWEEP]
@@ -1561,8 +1599,9 @@ def phase_flash_times(dev: torch.device, exact_ms: float) -> dict:
             o = torch.empty_like(q)
             stream = torch.cuda.current_stream().cuda_stream
             reps = 50 if n <= 1024 else 10
-            ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale=0.125), reps)
-            alone = cuda_ms(lambda: lib.artalk_flash_attention(
+            with torch.no_grad():
+                ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale=0.125), reps)
+            alone = cuda_ms(lambda: fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), h, h, n, n, 64,
                 0.125, 0, 0, 0, 0, int(dtype == torch.bfloat16), stream), reps)
             plain = cuda_ms(lambda: attention.flash_attention_plain(q, k, v, scale=0.125),
@@ -1576,6 +1615,12 @@ def phase_flash_times(dev: torch.device, exact_ms: float) -> dict:
                   f"({sdpa_backend(q, k, v)}), bound {bound:.5f} ({bytes_ms:.5f} bytes, "
                   f"{ops_ms:.5f} operations); the kernel alone reaches {bound / alone:.3f} "
                   "of the bound")
+            if bound > alone:
+                raise AssertionError(f"[times] flash {tag} {site}: {alone:.5f} ms beats the "
+                                     f"bound {bound:.5f} ms: the bound is wrong")
+            if site in ("wav2vec", f"sweep {FLASH_SWEEP[-1]}"):
+                profile_calls(lambda: attention.flash_attention(q, k, v, scale=0.125),
+                              f"flash {tag} {site}", reps=20)
             if site == "wav2vec":
                 out[tag] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1642,8 +1687,7 @@ def phase_sort_kernel(dev: torch.device, scene_keys: dict) -> int:
                                  f"{launched} wrapper launches, {cuda_launched} CUDA launches")
         diffs = {w: (got.long() - want.long()).abs() for w, want in wants.items()}
         mismatches = {w: int((d != 0).sum()) for w, d in diffs.items()}
-        print(f"[sort] {name}: {n} keys (padded to {sort.padded_length(n)}, "
-              f"{cuda_launched} CUDA launches): mismatches "
+        print(f"[sort] {name}: {n} keys ({cuda_launched} CUDA launches): mismatches "
               + ", ".join(f"vs {w} {m}" for w, m in mismatches.items()))
         if any(mismatches.values()):
             raise AssertionError(f"[sort] {name}: the kernel's output differs: {mismatches}")
@@ -1768,11 +1812,14 @@ def phase_sort_times(dev: torch.device, avatar_keys: torch.Tensor) -> dict:
     out = {}
     stream = torch.cuda.current_stream().cuda_stream
     for tag, keys in (("avatar frame", avatar_keys), ("2^21", full_range_keys(1 << 21, 230, dev))):
-        n, p = keys.shape[0], sort.padded_length(keys.shape[0])
-        scratch = torch.empty(p, dtype=torch.int32, device=dev)
+        n = keys.shape[0]
+        result = torch.empty(n, dtype=torch.int32, device=dev)
+        work = torch.empty(n + sort._LIB.artalk_sort_meta_words(n), dtype=torch.int32,
+                           device=dev)
         launched = ctypes.c_int(0)
-        alone = cuda_ms(lambda: sort._LIB.artalk_sort_keys(keys.data_ptr(), n, scratch.data_ptr(),
-                                                           p, stream, ctypes.byref(launched)), 20)
+        alone = cuda_ms(lambda: sort._LIB.artalk_sort_keys(
+            keys.data_ptr(), n, result.data_ptr(), work.data_ptr(), work[n:].data_ptr(), stream,
+            ctypes.byref(launched)), 20)
         before = sort.CUDA_LAUNCHES
         sort.sort_keys(keys)
         cuda_launches = sort.CUDA_LAUNCHES - before
@@ -1780,18 +1827,47 @@ def phase_sort_times(dev: torch.device, avatar_keys: torch.Tensor) -> dict:
         plain = cuda_ms(lambda: sort.sort_keys_plain(keys), 3)
         library = cuda_ms(lambda: torch.sort(keys), 20)
         bound = 8 * n / HBM_BYTES_PER_S * 1e3
-        print(f"[times] sort {tag} ({n} keys, padded to {p}, {cuda_launches} CUDA "
-              f"launches a sort, {launched.value} reported by the entry point alone): wrapper {wrapper:.5f} ms, kernel alone {alone:.5f}, plain "
-              f"{plain:.5f}, torch.sort {library:.5f}, bound {bound:.5f} ms (8 bytes a key "
-              f"over 3.35 TB/s); the kernel alone reaches {bound / alone:.4f} of the bound")
+        print(f"[times] sort {tag} ({n} keys, {cuda_launches} CUDA launches a sort, "
+              f"{launched.value} reported by the entry point alone): wrapper {wrapper:.5f} ms, "
+              f"kernel alone {alone:.5f}, plain {plain:.5f}, torch.sort {library:.5f}, bound "
+              f"{bound:.5f} ms (8 bytes a key over 3.35 TB/s); the kernel alone reaches "
+              f"{bound / alone:.4f} of the bound, torch.sort / kernel alone "
+              f"{library / alone:.3f}")
         out[tag] = {"ms": wrapper, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
                     "library_ms": library, "kernel_only_ms": alone,
                     "cuda_launches_per_sort": cuda_launches}
-        if cuda_launches != launched.value or cuda_launches < 1:
+        if cuda_launches != launched.value or not 1 <= cuda_launches <= SORT_MAX_LAUNCHES:
             raise AssertionError(f"[times] sort {tag}: the wrapper counted {cuda_launches} "
                                  f"CUDA launches, the entry point {launched.value}")
-    profile_calls(lambda: sort.sort_keys(avatar_keys), f"sort of {avatar_keys.shape[0]} keys")
+        profile_calls(lambda: sort.sort_keys(keys), f"sort of {n} keys ({tag})")
     return out["avatar frame"]
+
+
+def phase_tf32_probe() -> dict:
+    """tests/tf32_probe.py in a fresh ``python3 -c`` process that imports only
+    artalk_tpu_torch.models.hubert: HuBERT base and wav2vec2's conv frontend
+    with torch's default flags (cuDNN's TF32 on) equal the same calls after
+    full_float32() to TF32_PROBE_TOL."""
+    with open(os.path.join(ROOT, "tests", "tf32_probe.py")) as f:
+        probe = f.read()
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[tf32] the probe failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[tf32] fresh process importing only models.hubert: TF32 flags (cudnn, matmul) "
+          f"after the import {got['tf32_after_import']}, after the calls "
+          f"{got['flags_after_calls']}, engine imported {got['engine_imported']}; HuBERT "
+          f"{tuple(got['shape'])} vs the same call after full_float32() max abs diff "
+          f"{got['hubert_diff']:.3g}, conv frontend {got['frontend_diff']:.3g} (limit "
+          f"{TF32_PROBE_TOL}); one frontend conv called directly with TF32 on vs off differs "
+          f"by {got['tf32_effect']:.3g}")
+    if (got["tf32_after_import"][0] is not True or got["engine_imported"]
+            or got["flags_after_calls"] != got["tf32_after_import"] or not got["finite"]
+            or max(got["hubert_diff"], got["frontend_diff"]) > TF32_PROBE_TOL):
+        raise AssertionError(f"[tf32] {got}")
+    return got
 
 
 def main() -> int:
@@ -1847,6 +1923,7 @@ def main() -> int:
     debug = phase_debug_renderers(dev, flame_data, motions)
     phase_evaluation(dev, flame_data, motions, modes["int8"]["motions"], audio)
     sort_times = phase_sort_times(dev, scene_keys["avatar scene"])
+    phase_tf32_probe()
 
     print(f"[summary] {smi}: inference ms/window by mode "
           + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())

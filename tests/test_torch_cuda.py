@@ -24,10 +24,17 @@ tests/test_attention.py's 2e-5 and gradients to its 3e-5; bf16 outputs, a
 float32 result rounded once on each side, to 1 bf16 ulp of the largest value.
 The sort kernel must equal both sort_keys_plain and torch.sort exactly, and
 the splat prepass through it must give the instance lists that torch.sort
-gives.
+gives. The TF32 probe (tests/tf32_probe.py) runs HuBERT in a fresh process
+that imports only the HuBERT module: its outputs must not move when TF32 is
+turned off afterwards.
 """
 
+import itertools
+import json
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -240,7 +247,8 @@ def test_splat_rejects_bad_inputs(cuda):
 def _flash_cases():
     """(q, k, v, bias, scale): the model sites, tests/test_attention.py's
     bias and padding cases, a wholly masked row, head dims of 16, 100 and 128,
-    and a bias broadcast over heads and queries."""
+    a bias broadcast over heads and queries, the 4096 sweep length, and cases
+    with enough heads for the row-block kernel."""
     rng = np.random.default_rng(4)
 
     def qkv(b, h, lq, lk, hd):
@@ -265,6 +273,16 @@ def _flash_cases():
     yield (*qkv(2, 2, 65, 130, 100), torch.from_numpy(rng.standard_normal((2, 1, 1, 130)).astype(
         np.float32)), 0.1)
     yield (*qkv(1, 4, 70, 97, 128), None, 128 ** -0.5)
+    yield (*qkv(1, 16, 4096, 4096, 64), None, 0.125)   # tools/bench_flash_attention.py's longest
+    # grids of more than half a CTA per SM take the one-warp-per-16-rows kernel,
+    # the smaller ones the split-keys kernel: the bias, the ragged tile, a
+    # wholly masked row and head dims of 100 and 128 on the first as well
+    many = rng.standard_normal((8, 1, 100, 130)).astype(np.float32)
+    many[:, :, 3] = -np.inf
+    yield (*qkv(8, 20, 100, 130, 64), torch.from_numpy(many), 0.125)
+    yield (*qkv(4, 40, 65, 130, 100), torch.from_numpy(rng.standard_normal((4, 1, 1, 130)).astype(
+        np.float32)), 0.1)
+    yield (*qkv(4, 40, 70, 97, 128), None, 128 ** -0.5)
 
 
 @pytest.mark.cuda
@@ -285,6 +303,25 @@ def test_flash_attention_matches_plain(cuda, dtype):
         else:
             ulp = 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
             assert (got.float() - want.float()).abs().max().item() <= ulp, tuple(q.shape)
+
+
+@pytest.mark.cuda
+def test_flash_attention_launches_directly_without_grad(cuda):
+    """Inputs that need a gradient go through the autograd Function; under
+    no_grad, or without such inputs, the kernel is launched directly. Both
+    give the same output, bit for bit, at both model sites."""
+    sites = [case for case, _ in zip(_flash_cases(), range(2))]
+    for (q, k, v, _, scale), dtype in itertools.product(sites, (torch.float32, torch.bfloat16)):
+        q, k, v = (t.to(cuda, dtype).requires_grad_() for t in (q, k, v))
+        before = tatt.LAUNCHES
+        graph = tatt.flash_attention(q, k, v, scale=scale)
+        with torch.no_grad():
+            direct = tatt.flash_attention(q, k, v, scale=scale)
+        plain = tatt.flash_attention(q.detach(), k.detach(), v.detach(), scale=scale)
+        torch.cuda.synchronize()
+        assert tatt.LAUNCHES == before + 3
+        assert graph.grad_fn is not None and direct.grad_fn is None and plain.grad_fn is None
+        assert torch.equal(graph, direct) and torch.equal(direct, plain)
 
 
 @pytest.mark.cuda
@@ -330,13 +367,21 @@ def _sort_keys(rng, n):
 
 @pytest.mark.cuda
 def test_sort_matches_plain_and_torch_sort(cuda):
-    """Also the CUDA launches the entry point reports: one tile sort, then per
-    stage above the 2048-key tile its global substages and one merge."""
+    """Also the CUDA launches the entry point reports: 6 for any n > 0 (init,
+    histogram, one pass per 8-bit digit, a pass whose digit is constant
+    returning on the device). Besides full-range keys: keys below 2^25 as the
+    splat prepass builds them (the top digit constant), keys that differ only
+    in their lowest digit, and all-equal keys (no pass runs: the input is
+    copied)."""
     rng = np.random.default_rng(6)
-    cuda_launches = {0: 0, 1: 1, 2: 1, 3: 1, 2047: 1, 2048: 1, 2049: 3, 5000: 6,
-                     1 << 16: 21, 100_003: 28, 1 << 20: 55}
-    for n, want_launches in cuda_launches.items():
-        keys = _sort_keys(rng, n).to(cuda)
+    cases = [(n, _sort_keys(rng, n)) for n in (0, 1, 2, 3, 2047, 2048, 2049, 3839, 3840, 3841,
+                                               5000, 1 << 16, 100_003, 1 << 19, 1 << 20,
+                                               1 << 21)]
+    cases += [(879_296, torch.from_numpy(rng.integers(0, 1 << 25, 879_296).astype(np.int32))),
+              (70_000, torch.from_numpy(rng.integers(-7, 200, 70_000).astype(np.int32))),
+              (10_000, torch.full((10_000,), -5, dtype=torch.int32))]
+    for n, keys in cases:
+        keys, want_launches = keys.to(cuda), 6 if n else 0
         before, before_cuda = tsort.LAUNCHES, tsort.CUDA_LAUNCHES
         got = tsort.sort_keys(keys)
         assert tsort.LAUNCHES == before + (n > 0)
@@ -345,6 +390,26 @@ def test_sort_matches_plain_and_torch_sort(cuda):
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == (n,)
         assert torch.equal(got, want) and torch.equal(got, torch.sort(keys).values), n
+
+
+@pytest.mark.cuda
+def test_tf32_off_in_a_fresh_process(cuda):
+    """tests/tf32_probe.py in a fresh process that imports only the HuBERT
+    module: TF32 is on there after the import, the port's convolutions turn
+    it off and restore it, and HuBERT's output and the conv frontend's equal
+    the same calls after full_float32() to 1e-5 (TF32 convolutions differ by
+    about 1e-3)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "tests", "tf32_probe.py")) as f:
+        probe = f.read()
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=repo, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["tf32_after_import"][0] is True and not got["engine_imported"], got
+    assert got["flags_after_calls"] == got["tf32_after_import"], got
+    assert got["finite"] and got["shape"] == [1, 199, 768], got
+    assert got["hubert_diff"] <= 1e-5 and got["frontend_diff"] <= 1e-5, got
 
 
 @pytest.mark.cuda

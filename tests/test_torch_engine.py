@@ -19,6 +19,7 @@ from artalk_tpu.utils.video import read_video_npz
 
 from artalk_tpu_torch import cli as tcli
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
+from artalk_tpu_torch.utils.video import read_y4m
 
 from test_engine import CFG, _write_wav
 from test_torch_params import torch_config
@@ -94,7 +95,10 @@ def test_rendering_matches_jax(engines, rng):
     motions = teng.inference(audio)
     out = teng.rendering(audio, motions, shape_id="mesh", save_name="clip")
     assert os.path.exists(out)
-    if out.endswith(".npz"):
+    if out.endswith(".y4m"):   # no PyAV or ffmpeg: Y4M + WAV, as the JAX package writes
+        frames, fps = read_y4m(out)
+        assert fps == 25.0 and os.path.exists(out[:-4] + ".wav")
+    elif out.endswith(".npz"):
         with np.load(out) as z:
             frames = z["frames"]
         rgb, fps, _, sr = read_video_npz(out)   # the JAX package reads the container

@@ -37,6 +37,7 @@ from artalk_tpu_torch.models.gagavatar import generators as tgen
 from artalk_tpu_torch.models.gagavatar import style_unet as tunet
 from artalk_tpu_torch.models.gagavatar import watermark as twm
 from artalk_tpu_torch.ops import resize2d as tresize
+from artalk_tpu_torch.utils import video as tvideo
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 
 from test_engine import CFG, _write_wav
@@ -291,7 +292,9 @@ def test_engine_and_cli_render_gaga(small_gaga, tmp_path, monkeypatch):
     audio = (np.random.default_rng(3).standard_normal(1600) * 0.1).astype(np.float32)
     motions = engine.inference(audio)
     out = engine.rendering(audio, motions, shape_id="synthetic_0", save_name="gaga")
-    if out.endswith(".npz"):
+    if out.endswith(".y4m"):
+        assert tvideo.read_y4m(out)[0].shape == (len(motions), 192, 128)
+    elif out.endswith(".npz"):
         with np.load(out) as z:
             assert z["frames"].shape == (len(motions), 192, 128)
     assert os.path.getsize(out) > 0
@@ -302,7 +305,9 @@ def test_engine_and_cli_render_gaga(small_gaga, tmp_path, monkeypatch):
     wav = _write_wav(tmp_path / "clip.wav", seconds=0.1)
     out = tcli.main(["-a", wav, "--load_gaga", "-i", "synthetic_0"])
     assert os.path.basename(out).startswith("clip_default_synthetic_0")
-    if out.endswith(".npz"):
+    if out.endswith(".y4m"):
+        assert tvideo.read_y4m(out)[0].shape == (3, 192, 128)
+    elif out.endswith(".npz"):
         with np.load(out) as z:
             assert z["frames"].shape == (3, 192, 128)
     assert tcli.resolve_shape_id(engine, "nope.jpg", load_gaga=True) == "mesh"

@@ -33,8 +33,8 @@ sys.exit(1 if bad else 0)
 def test_import_leaves_jax_out():
     """Every module of the port, and chip_smoke.py, import without jax or
     artalk_tpu (whose __init__ imports jax); the GAGAvatar modules, the
-    flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers
-    and the evaluation metrics are among them."""
+    flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers,
+    the evaluation metrics and the native media runtime are among them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -45,7 +45,7 @@ def test_import_leaves_jax_out():
                    "artalk_tpu_torch.ops.attention", "artalk_tpu_torch.models.hubert",
                    "artalk_tpu_torch.models.mimi", "artalk_tpu_torch.ops.sort",
                    "artalk_tpu_torch.models.renderer_extras",
-                   "artalk_tpu_torch.evaluation"} <= imported
+                   "artalk_tpu_torch.evaluation", "artalk_tpu_torch.runtime.media"} <= imported
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

@@ -93,3 +93,51 @@ def test_yuv420_matches_jax(rng):
     chw = np.ascontiguousarray(rgb.transpose(0, 3, 1, 2))
     np.testing.assert_array_equal(
         tcs.rgb_to_yuv420p(torch.from_numpy(chw), channel_axis=1).numpy(), got)
+
+
+def _conv_site(site: str):
+    """A call of one of the port's convolution sites on small CPU inputs."""
+    from artalk_tpu_torch.models import wav2vec as tw2v
+    from artalk_tpu_torch.models.gagavatar import dino as tdino
+
+    g = torch.Generator().manual_seed(0)
+    if site == "wav2vec.conv1d":
+        x, w = torch.randn(1, 4, 40, generator=g), torch.randn(8, 4, 3, generator=g)
+        tw2v.conv1d(x, w, torch.zeros(8), stride=2)
+        tw2v.conv1d(x.bfloat16(), w.bfloat16(), torch.zeros(8).bfloat16(), stride=2)
+    elif site == "nn.conv2d":
+        x, w = torch.randn(1, 4, 9, 9, generator=g), torch.randn(8, 4, 3, 3, generator=g)
+        tnn.conv2d(x, w, torch.zeros(8), padding=1)
+        tnn.conv2d(x.bfloat16(), w.bfloat16(), torch.zeros(8).bfloat16(), padding=1)
+    else:
+        cfg = tdino.DinoConfig(patch_size=14, hidden_size=32, depth=4, num_heads=4,
+                               image_size=56)
+        model = tdino.DinoDPT(output_dim=16, dino_cfg=cfg).init(g).requires_grad_(False)
+        model(torch.rand(1, 3, 56, 56, generator=g))
+
+
+@pytest.mark.parametrize("site", ["wav2vec.conv1d", "nn.conv2d", "dino"])
+def test_convolutions_run_with_tf32_off(site, monkeypatch):
+    """With TF32 on (torch's default for cuDNN convolutions), every
+    convolution the port's sites call sees both TF32 flags off, and the
+    caller's flags are on again afterwards: a float32 convolution does not
+    depend on what the caller imported or set."""
+    seen = []
+    for name in ("conv1d", "conv2d", "conv_transpose2d"):
+        def spy(*args, _real=getattr(torch.nn.functional, name), _name=name, **kwargs):
+            seen.append((_name, torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(torch.nn.functional, name, spy)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _conv_site(site)
+        after = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert seen and all(not cudnn and not matmul for _, cudnn, matmul in seen), seen
+    assert after == (True, True)
+    if site == "dino":   # the patch embedding, both transposed convs and the DPT's convs
+        assert {name for name, _, _ in seen} == {"conv2d", "conv_transpose2d"}
+        assert sum(name == "conv_transpose2d" for name, _, _ in seen) == 2
