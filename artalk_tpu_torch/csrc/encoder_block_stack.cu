@@ -11,25 +11,40 @@
 // caller. The Pallas kernel's Abramowitz-Stegun erf existed because Mosaic
 // has no erf; this kernel uses erff.
 //
-// What bounds it on this card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32 without
-// tensor cores, 989 TFLOP/s bf16 with them): 24 layers x 12,582,912 = 302 M
-// weights and about 124 GFLOP per 199-frame window, attention included. The
-// fp32 pack is bound by fp32 FMA (1.85 ms); a bf16 pack by its 604 MB of
-// weights (0.18 ms); an int8 pack by bf16 tensor-core operations (0.125 ms),
-// which this kernel, computing on CUDA cores, does not reach.
+// What bounds it on this card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 and 495
+// TF32 on the tensor cores, 67 fp32 outside them): 24 layers x 12,582,912 =
+// 302 M weights and about 124 GFLOP per 199-frame window, attention
+// included. A bf16 pack is bound by its 604 MB of weights (0.18 ms), an int8
+// pack by bf16 tensor-core operations (0.125 ms), the float32 pack by 3xTF32
+// (three TF32 products per product, 0.75 ms). At 199 rows a layer is 5 GFLOP
+// against 25 MB of bf16 weights, so each stage is short and the grid-wide
+// barriers between stages and the latency of each item count as much.
 //
-// What the design does about it: one launch replaces the 24 x ~15 launches
-// of the plain version. A persistent cooperative grid hands out the output
-// tiles of each stage (the two d-wide products also split along the
-// contraction, to give every SM work), so each weight is streamed once per
-// window while the 199 x 4096 fp32 intermediates (3.3 MB) stay in L2.
-// Grid-wide barriers separate q/k/v (LN1 folded into its input), attention,
-// output projection + residual, fc1 (LN2 folded in) + GELU, and fc2 +
-// residual, plus one before the reduction of each split product. Several windows may share one launch: each window's rows are
+// What the design does about it (csrc/encoder_stages.cuh): the products run
+// on the tensor cores (mma.sync: bf16 for bf16 and int8 packs, whose
+// reference rounds both operands to bf16; 3xTF32 for float32) in output
+// tiles of 128 rows, 64 columns wide for q/k/v and fc1 (96 and 128 items at
+// 199 rows, most of the 132 SMs) and 128 for the split output projection and
+// fc2 (fewer re-reads of the operand from L2); the tiles stream
+// through a 4-stage cp.async ring in the pack's own type (int8 tiles are
+// widened to bf16 in shared memory), so a weight moves from memory once per
+// window in its pack's width. Each LayerNorm is computed once per row, by the
+// row pass that finishes the row (one CTA a row: the split sums, bias and
+// residual of the preceding product), which writes the normalised row in the
+// operand type; the attention output and the fc1 activations are written in
+// it too. The bf16 attention stages each head's keys and values once per 128
+// query rows and computes both products on the tensor cores; the float32
+// pack keeps the fp32 attention of block_stack_common.cuh. One persistent
+// cooperative grid of one CTA per SM (up to 255 registers a thread, no
+// spills) walks each stage's items; per layer seven grid-wide barriers
+// (about 1.5 us each) separate q/k/v, attention, the output projection, its
+// row pass (+ LN2), fc1 + GELU, fc2 and its row pass (+ the next layer's
+// LN1). The two d-wide products split their contraction so that every SM has
+// work. Several windows may share one launch: each window's rows are
 // computed in the same order whatever the batch, so its result equals its
 // batch-1 result bit for bit.
 
-#include "block_stack_common.cuh"
+#include "encoder_stages.cuh"
 
 // Field order and types must match EncParams in ops/encoder_block_stack.py.
 struct EncParams {
@@ -51,103 +66,101 @@ struct EncParams {
   const float* sfc1;  // (depth, 1, hidden)
   const float* sfc2;  // (depth, hidden / d, d)
   float* y;           // (B * T, d); the running x after the first output projection
-  float* qkv;         // scratch (B * T, 3d)
-  float* attn;        // scratch (B * T, d)
-  float* h;           // scratch (B * T, hidden)
-  float* partial;     // scratch (max splits x rows x N) of the split products
+  void* xa;           // scratch (B * T, d): a LayerNorm's output, in the operand type
+  void* qkv;          // scratch (B * T, 3d), operand type
+  void* attn;         // scratch (B * T, d), operand type
+  void* h;            // scratch (B * T, hidden), operand type
+  float* partial;     // scratch (max splits x rows x d) of the split products
   int B, T, d, H, hidden, depth;
   float eps;
   int wtype;          // 0 f32, 1 bf16, 2 int8
-  int sp_qkv, sp_out, sp_fc1, sp_fc2;  // contraction splits of the four products
+  int sp_out, sp_fc2; // contraction splits of the output projection and fc2
 };
 
 namespace {
 
-using namespace bs;
-
+constexpr int kHeadDim = 64;   // the wrapper checks
 
 template <typename WT>
-__global__ void __launch_bounds__(kThreads, 2) encoder_kernel(EncParams p) {
-  extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int M = p.B * p.T, d = p.d, hid = p.hidden, hd = d / p.H;
-  const int rnd = sizeof(WT) != sizeof(float);
+__global__ void __launch_bounds__(enc::kThreads, 1) encoder_kernel(EncParams p) {
+  using AT = typename enc::Tiles<WT, 128>::A;
+  constexpr bool kF32 = sizeof(WT) == sizeof(float);
+  extern __shared__ __align__(16) unsigned char smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int M = p.B * p.T, d = p.d, hid = p.hidden;
   const WT* wqkv = static_cast<const WT*>(p.wqkv);
   const WT* wout = static_cast<const WT*>(p.wout);
   const WT* wfc1 = static_cast<const WT*>(p.wfc1);
   const WT* wfc2 = static_cast<const WT*>(p.wfc2);
+  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
 
+  // LN1 of the first layer's input rows
+  enc::row_pass<AT>({M, d, nullptr, 0, nullptr, p.x, nullptr, p.ln1s, p.ln1b, p.eps, p.xa},
+                    smem);
+  grid.sync();
   for (int i = 0; i < p.depth; ++i) {
     const float* x = i == 0 ? p.x : p.y;
+    const size_t di = static_cast<size_t>(i) * d;
 
-    Gemm g{};
-    g.M = M; g.N = 3 * d; g.K = d;
-    g.a = x; g.lda = d;
-    g.ln = 1; g.eps = p.eps; g.s = p.ln1s + static_cast<size_t>(i) * d;
-    g.t = p.ln1b + static_cast<size_t>(i) * d; g.st_ld = 0; g.s_add = 0.0f;
-    g.round_a = rnd;
-    g.w = wqkv + static_cast<size_t>(i) * d * 3 * d;
-    g.bias = p.bqkv + static_cast<size_t>(i) * 3 * d;
-    g.scales = p.sqkv ? p.sqkv + static_cast<size_t>(i) * 3 * d : nullptr;
-    g.scale_chunk = d;
-    g.epi = kStore; g.out = p.qkv; g.ldo = 3 * d;
-    g.splits = p.sp_qkv; g.partial = p.partial;
-    gemm<WT>(g, smem, grid);
-
-    Attn a{};
-    a.B = p.B; a.T = p.T; a.H = p.H; a.hd = hd; a.d = d;
-    a.prefix = 0;
-    a.q = p.qkv; a.k = p.qkv + d; a.v = p.qkv + 2 * d; a.ld = 3 * d;
-    a.l2norm = 0; a.logit_scale = 1.0f / sqrtf(static_cast<float>(hd));
-    a.round = rnd; a.out = p.attn;
-    attention<float>(a, smem);
+    enc::mma_gemm<WT, 64>({M, 3 * d, d, p.xa, wqkv + di * 3 * d,
+                       p.sqkv ? p.sqkv + 3 * di : nullptr, d, 1, enc::kBias, p.bqkv + 3 * di,
+                       p.qkv, nullptr}, smem);
     grid.sync();
 
-    g = Gemm{};
-    g.M = M; g.N = d; g.K = d;
-    g.a = p.attn; g.lda = d; g.round_a = rnd;
-    g.w = wout + static_cast<size_t>(i) * d * d;
-    g.bias = p.bout + static_cast<size_t>(i) * d;
-    g.scales = p.sout ? p.sout + static_cast<size_t>(i) * d : nullptr;
-    g.scale_chunk = d;
-    g.epi = kResidual; g.out = p.y; g.ldo = d;
-    g.resid = x; g.ld_resid = d;
-    g.splits = p.sp_out; g.partial = p.partial;
-    gemm<WT>(g, smem, grid);
+    if constexpr (kF32) {
+      bs::Attn a{};
+      a.B = p.B; a.T = p.T; a.H = p.H; a.hd = kHeadDim; a.d = d;
+      a.prefix = 0;
+      a.q = static_cast<const float*>(p.qkv);
+      a.k = a.q + d; a.v = a.q + 2 * d; a.ld = 3 * d;
+      a.l2norm = 0; a.logit_scale = scale;
+      a.round = 0; a.out = static_cast<float*>(p.attn);
+      bs::attention<float>(a, reinterpret_cast<float*>(smem));
+    } else {
+      enc::tc_attention<kHeadDim>({p.B, p.T, p.H, d,
+                                   static_cast<const __nv_bfloat16*>(p.qkv), scale,
+                                   static_cast<__nv_bfloat16*>(p.attn)}, smem);
+    }
+    grid.sync();
 
-    g = Gemm{};
-    g.M = M; g.N = hid; g.K = d;
-    g.a = p.y; g.lda = d;
-    g.ln = 1; g.eps = p.eps; g.s = p.ln2s + static_cast<size_t>(i) * d;
-    g.t = p.ln2b + static_cast<size_t>(i) * d; g.st_ld = 0; g.s_add = 0.0f;
-    g.round_a = rnd;
-    g.w = wfc1 + static_cast<size_t>(i) * d * hid;
-    g.bias = p.bfc1 + static_cast<size_t>(i) * hid;
-    g.scales = p.sfc1 ? p.sfc1 + static_cast<size_t>(i) * hid : nullptr;
-    g.scale_chunk = d;
-    g.epi = kGeluErf; g.out = p.h; g.ldo = hid;
-    g.splits = p.sp_fc1; g.partial = p.partial;
-    gemm<WT>(g, smem, grid);
+    enc::mma_gemm<WT, 128>({M, d, d, p.attn, wout + di * d, p.sout ? p.sout + di : nullptr, d,
+                       p.sp_out, enc::kPartial, nullptr, nullptr, p.partial}, smem);
+    grid.sync();
+    enc::row_pass<AT>({M, d, p.partial, p.sp_out, p.bout + di, x, p.y, p.ln2s + di,
+                       p.ln2b + di, p.eps, p.xa}, smem);
+    grid.sync();
 
-    g = Gemm{};
-    g.M = M; g.N = d; g.K = hid;
-    g.a = p.h; g.lda = hid; g.round_a = rnd;
-    g.w = wfc2 + static_cast<size_t>(i) * hid * d;
-    g.bias = p.bfc2 + static_cast<size_t>(i) * d;
-    g.scales = p.sfc2 ? p.sfc2 + static_cast<size_t>(i) * hid : nullptr;  // (hid / d) x d
-    g.scale_chunk = d;
-    g.epi = kResidual; g.out = p.y; g.ldo = d;
-    g.resid = p.y; g.ld_resid = d;
-    g.splits = p.sp_fc2; g.partial = p.partial;
-    gemm<WT>(g, smem, grid, i + 1 == p.depth);
+    enc::mma_gemm<WT, 64>({M, hid, d, p.xa, wfc1 + di * hid,
+                       p.sfc1 ? p.sfc1 + static_cast<size_t>(i) * hid : nullptr, d, 1,
+                       enc::kGelu, p.bfc1 + static_cast<size_t>(i) * hid, p.h, nullptr}, smem);
+    grid.sync();
+    enc::mma_gemm<WT, 128>({M, d, hid, p.h, wfc2 + di * hid,
+                       p.sfc2 ? p.sfc2 + static_cast<size_t>(i) * hid : nullptr,  // (hid / d) x d
+                       d, p.sp_fc2, enc::kPartial, nullptr, nullptr, p.partial}, smem);
+    grid.sync();
+    const bool last = i + 1 == p.depth;
+    enc::row_pass<AT>({M, d, p.partial, p.sp_fc2, p.bfc2 + di, p.y, p.y,
+                       last ? nullptr : p.ln1s + di + d, last ? nullptr : p.ln1b + di + d,
+                       p.eps, p.xa}, smem);
+    if (!last) grid.sync();
   }
+}
+
+// dynamic shared memory of the kernel: the larger of the product's ring and
+// the attention's tiles
+template <typename WT>
+int smem_bytes(const EncParams& p) {
+  const int attn = sizeof(WT) == sizeof(float)
+                       ? bs::attn_smem_floats(p.T, kHeadDim) * static_cast<int>(sizeof(float))
+                       : enc::AttnTiles<kHeadDim>::bytes(p.T);
+  const int gemm = enc::Tiles<WT, 128>::kBytes > enc::Tiles<WT, 64>::kBytes
+                       ? enc::Tiles<WT, 128>::kBytes : enc::Tiles<WT, 64>::kBytes;
+  return attn > gemm ? attn : gemm;
 }
 
 template <typename WT>
 int launch(const EncParams& p, cudaStream_t stream) {
-  const int attn = attn_smem_floats(p.T, p.d / p.H);
-  const int smem = attn > gemm_smem_floats() ? attn : gemm_smem_floats();
-  return launch_cooperative(encoder_kernel<WT>, p, smem, stream);
+  return bs::launch_cooperative(encoder_kernel<WT>, p, (smem_bytes<WT>(p) + 3) / 4, stream);
 }
 
 }  // namespace

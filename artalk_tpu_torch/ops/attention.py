@@ -39,6 +39,7 @@ MAX_HEAD_DIM = 128
 LAUNCHES = 0
 
 SOURCE = CSRC / "flash_attention.cu"
+HEADERS = (CSRC / "mma_ptx.cuh",)
 BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
 _FN = None   # the bound entry point of the loaded library
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,7 +64,7 @@ def build() -> float:
     global _FN, BUILD_REPORT
     if _FN is not None:
         return 0.0
-    lib, seconds, BUILD_REPORT = build_library(SOURCE)
+    lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
     fn = lib.artalk_flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
                    + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])

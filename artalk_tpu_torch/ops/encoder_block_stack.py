@@ -25,13 +25,13 @@ from ..models import nn as tnn
 from ._nvcc import CSRC, build_library
 from .ar_block_stack import (WEIGHT_TYPES, PackDict, check_launch, check_pack, check_shapes,
                              pack_dtype, pack_weights, ptr, rounder, softmax_attend,
-                             split_products, weight_matmul)
+                             weight_matmul)
 
 # Launches of the CUDA kernel in this process; encoder_block_stack() adds one per launch.
 LAUNCHES = 0
 
 SOURCE = CSRC / "encoder_block_stack.cu"
-HEADERS = (CSRC / "block_stack_common.cuh",)
+HEADERS = (CSRC / "encoder_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
 BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
 _LIB = None
 
@@ -41,10 +41,31 @@ class _EncParams(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x", "wqkv", "wout", "wfc1", "wfc2", "bqkv", "bout", "bfc1", "bfc2", "ln1s",
-        "ln1b", "ln2s", "ln2b", "sqkv", "sout", "sfc1", "sfc2", "y", "qkv", "attn",
+        "ln1b", "ln2s", "ln2b", "sqkv", "sout", "sfc1", "sfc2", "y", "xa", "qkv", "attn",
         "h", "partial")] + [(n, ctypes.c_int) for n in ("B", "T", "d", "H", "hidden", "depth")
                             ] + [("eps", ctypes.c_float)] + [(n, ctypes.c_int) for n in (
-                                "wtype", "sp_qkv", "sp_out", "sp_fc1", "sp_fc2")]
+                                "wtype", "sp_out", "sp_fc2")]
+
+
+HEAD_DIM = 64        # the kernel's head dim (wav2vec2: 1024 / 16)
+TILE_M, TILE_N, TILE_K = 128, 128, 64   # csrc/encoder_stages.cuh: kBM, kBN, bf16 kBK
+
+
+def encoder_splits(rows: int, d: int, hidden: int, sms: int) -> tuple:
+    """Contraction splits of the output projection (d x d) and fc2 (hidden x
+    d), whose row passes add the partial sums: the most that still give at
+    most one item per SM (the kernel's grid) for ``rows`` (one window's
+    frames), each split a whole number of 64-deep steps; fc2 splits at least
+    at every ``d``-row int8 scale chunk, so that a split's sum is scaled
+    once. They depend on the window, the widths and the card, never on the
+    batch, so a row's sums are the same at any batch size."""
+    base = -(-rows // TILE_M) * (d // TILE_N)
+    splits = []
+    for k in (d, hidden):
+        valid = [s for s in range(1, 17) if k % (s * TILE_K) == 0 and d % (k // s) == 0]
+        fit = [s for s in valid if base * s <= sms]
+        splits.append(fit[-1] if fit else valid[0])
+    return tuple(splits)
 
 
 @torch.no_grad()
@@ -128,6 +149,9 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
     b, t, d = x.shape
     depth, hidden = pack["wfc1"].shape[0], pack["wfc1"].shape[2]
     check_shapes(d, hidden, num_heads)
+    if d // num_heads != HEAD_DIM:
+        raise ValueError(f"encoder_block_stack: the kernel takes a head dim of {HEAD_DIM}, "
+                         f"got d={d} with {num_heads} heads")
     if pack["wqkv"].shape != (depth, d, 3 * d):
         raise ValueError(f"pack wqkv {tuple(pack['wqkv'].shape)} does not fit d={d}")
     check_pack(pack, x.device)
@@ -136,20 +160,25 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
     m = b * t
     dev = x.device
     y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
-    qkv = torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
-    attn = torch.empty((m, d), dtype=torch.float32, device=dev)
-    h = torch.empty((m, hidden), dtype=torch.float32, device=dev)
-    splits, partial = split_products(t, b, d, hidden, dev)
+    # the products' operands: bf16 (the reference's rounding) unless the pack is float32
+    op = torch.float32 if pack_dtype(pack) == torch.float32 else torch.bfloat16
+    xa = torch.empty((m, d), dtype=op, device=dev)
+    qkv = torch.empty((m, 3 * d), dtype=op, device=dev)
+    attn = torch.empty((m, d), dtype=op, device=dev)
+    h = torch.empty((m, hidden), dtype=op, device=dev)
+    splits = encoder_splits(t, d, hidden,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty(max(splits) * m * d, dtype=torch.float32, device=dev)
     params = _EncParams(
         x=ptr(x), wqkv=ptr(pack["wqkv"]), wout=ptr(pack["wout"]), wfc1=ptr(pack["wfc1"]),
         wfc2=ptr(pack["wfc2"]), bqkv=ptr(pack["bqkv"]), bout=ptr(pack["bout"]),
         bfc1=ptr(pack["bfc1"]), bfc2=ptr(pack["bfc2"]), ln1s=ptr(pack["ln1s"]),
         ln1b=ptr(pack["ln1b"]), ln2s=ptr(pack["ln2s"]), ln2b=ptr(pack["ln2b"]),
         sqkv=ptr(pack.get("sqkv")), sout=ptr(pack.get("sout")), sfc1=ptr(pack.get("sfc1")),
-        sfc2=ptr(pack.get("sfc2")), y=ptr(y), qkv=ptr(qkv), attn=ptr(attn), h=ptr(h),
-        partial=ptr(partial), B=b, T=t, d=d, H=num_heads, hidden=hidden, depth=depth,
-        eps=eps, wtype=WEIGHT_TYPES[pack_dtype(pack)], sp_qkv=splits[0], sp_out=splits[1],
-        sp_fc1=splits[2], sp_fc2=splits[3])
+        sfc2=ptr(pack.get("sfc2")), y=ptr(y), xa=ptr(xa), qkv=ptr(qkv), attn=ptr(attn),
+        h=ptr(h), partial=ptr(partial), B=b, T=t, d=d, H=num_heads, hidden=hidden,
+        depth=depth, eps=eps, wtype=WEIGHT_TYPES[pack_dtype(pack)], sp_out=splits[0],
+        sp_fc2=splits[1])
     stream = torch.cuda.current_stream(dev).cuda_stream
     check_launch("encoder_block_stack",
                  _LIB.artalk_encoder_block_stack(ctypes.byref(params), stream))

@@ -18,7 +18,11 @@ it is XLA in JAX:
 
 ``splat_tiles`` composites every tile's segment front to back with the CUDA
 kernel in ``csrc/gsplat.cu`` (CUDA tensors only), ``splat_tiles_plain`` with
-plain PyTorch, vectorised over (pixels x instances) per tile.
+plain PyTorch, vectorised over (pixels x instances) per tile. The kernel
+culls, per 16x16 block of a tile, the instances that cannot pass the alpha
+cut at any of the block's pixels; ``block_culling`` is the plain version of
+that rule, and ``composite_plain(..., keep=)`` composites each block from its
+culled list.
 ``rasterize_gaussians`` runs the prepass and the kernel for CUDA tensors, and
 ``rasterize_gaussians_plain`` for CPU tensors; any other device raises.
 
@@ -36,7 +40,7 @@ The kernel's shared library is built with nvcc at first use (``ops/_nvcc.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,6 +57,10 @@ MAX_RX = (DUP_X - 1) * GTILE_W // 2    # 64 px: emission radius clamp
 MAX_RY = (DUP_Y - 1) * GTILE_H // 2    # 24 px
 ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1e-4
+BLOCK = 16         # the kernel's CTA: a 16x16-pixel block of a tile
+CULL_REL = 2.0 ** -16   # the culling box's slack (csrc/gsplat.cu: kCullRel,
+CULL_TAU = 1e-4         # kCullTau, kCullPx)
+CULL_PX = 1.0 / 64.0
 _PLAIN_CHUNK = 1024  # instances per step of splat_tiles_plain
 
 # Launches of the CUDA kernel in this process; splat_tiles() adds one per launch.
@@ -242,19 +250,61 @@ def splat_tiles(geo: torch.Tensor, colors: torch.Tensor, inst: torch.Tensor,
     return out
 
 
+def block_culling(geo: torch.Tensor, inst: torch.Tensor, offsets: torch.Tensor, size: int,
+                  shrink: float = 0.0) -> torch.Tensor:
+    """Plain version of the kernel's culling rule (csrc/gsplat.cu:
+    reaches_block). Returns keep (P, GTILE_W // BLOCK) bool: may instance i
+    pass the alpha cut at any pixel centre of block j (pixels [16 j, 16 j +
+    16) of its tile's columns)? alpha >= 1/255 needs opacity >= 1/255 and
+    ca dx^2 + 2 cb dx dy + cc dy^2 <= 2 ln(255 opacity), an ellipse inside
+    the box |dx| <= sqrt(2 tau cc / det), |dy| <= sqrt(2 tau ca / det), det =
+    ca cc - cb^2, widened by the kernel's slack for rounding. Conics that are
+    not finite, not positive definite or conditioned beyond 1 / CULL_REL are
+    kept. ``shrink`` narrows the box by that many pixels on each side: a
+    planted fault, for tests."""
+    dev = geo.device
+    tiles_x = size // GTILE_W
+    tile = torch.repeat_interleave(torch.arange(len(offsets) - 1, device=dev),
+                                   offsets.long().diff())
+    g = geo[inst.long()]
+    mx, my, ca, cb, cc, op = g[:, :6].unbind(-1)
+    finite = torch.isfinite(g[:, :6]).all(dim=-1)
+    det = ca * cc - cb * cb
+    tr = ca + cc
+    shaped = (ca > 0) & (cc > 0) & (det > 0) & (CULL_REL * tr * tr <= det)
+    eps = torch.tensor(ALPHA_EPS, dtype=torch.float32, device=dev)
+    thr = ((2.0 * (torch.log(op) - torch.log(eps)) + CULL_TAU)
+           * (1.0 + CULL_REL * tr * tr / det))
+    hx = torch.sqrt(thr * cc / det) + CULL_PX - shrink
+    hy = torch.sqrt(thr * ca / det) + CULL_PX - shrink
+    x0 = ((tile % tiles_x) * GTILE_W).float()[:, None] + BLOCK * torch.arange(
+        GTILE_W // BLOCK, device=dev).float()
+    y0 = ((tile // tiles_x) * GTILE_H).float()[:, None]
+    inside = ((mx[:, None] + hx[:, None] >= x0 + 0.5) & (mx[:, None] - hx[:, None] <= x0 + 15.5)
+              & (my[:, None] + hy[:, None] >= y0 + 0.5)
+              & (my[:, None] - hy[:, None] <= y0 + 15.5))
+    keep = torch.where(shaped[:, None], inside, True)
+    return torch.where(finite[:, None], keep & (op >= eps)[:, None], True)
+
+
 def composite_plain(geo: torch.Tensor, colors: torch.Tensor, inst: torch.Tensor,
-                    offsets: torch.Tensor, size: int
+                    offsets: torch.Tensor, size: int, keep: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain-torch compositing of the same instance lists. Returns (image
     (32, size, size), evaluated, composited): the (pixel, instance) pairs
     whose alpha was evaluated before the pixel stopped, and those of them
-    that added to the pixel (alpha above ALPHA_EPS)."""
+    that added to the pixel (alpha above ALPHA_EPS). With ``keep``
+    (``block_culling``'s (P, 8) mask) each 16x16 block composites only its
+    culled list: an instance left out of a block's list adds nothing there
+    and leaves T as it was, as if its alpha were 0, and is not counted as
+    evaluated."""
     dev = geo.device
     tiles_x = size // GTILE_W
     num_tiles = tiles_x * (size // GTILE_H)
     pidx = torch.arange(GTILE_H * GTILE_W, device=dev)
     ly = (pidx // GTILE_W).float()
     lx = (pidx % GTILE_W).float()
+    pblock = pidx % GTILE_W // BLOCK
     out = torch.zeros((num_tiles, GTILE_H * GTILE_W, CHANNELS), device=dev)
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
     composited = torch.zeros((), dtype=torch.int64, device=dev)
@@ -275,13 +325,16 @@ def composite_plain(geo: torch.Tensor, colors: torch.Tensor, inst: torch.Tensor,
             power = -0.5 * (g[:, 2] * dx * dx + g[:, 4] * dy * dy) - g[:, 3] * dx * dy
             alpha = torch.clamp(g[:, 5] * torch.exp(power), max=0.99)
             alpha = torch.where((power > 0) | (alpha < ALPHA_EPS), 0.0, alpha)
+            kept = None if keep is None else keep[c0:c0 + len(idx)].T[pblock]
+            if kept is not None:
+                alpha = torch.where(kept, alpha, 0.0)
             # transmittance before each instance: T times the exclusive cumprod
             trans = torch.cumprod(1.0 - alpha, dim=1)
             before = t * torch.cat([torch.ones_like(t), trans[:, :-1]], dim=1)
             live = before > T_EPS            # a pixel stops once its T <= T_EPS
             weight = torch.where(live, alpha * before, 0.0)
             color += weight @ colors[idx].float()
-            evaluated += live.sum()
+            evaluated += (live if kept is None else live & kept).sum()
             composited += (live & (alpha > 0)).sum()
             t = t * trans[:, -1:]
             if not bool((t > T_EPS).any()):

@@ -53,7 +53,10 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      and its plain version per pack (per level and per window), the encoder's
      library yardstick (torch.nn.TransformerEncoder, float32 without TF32 and
      bf16), and each kernel's bound (the larger of bytes over 3.35 TB/s and
-     operations over 67 TFLOP/s fp32 or 989 TFLOP/s bf16); the rasterizer's
+     operations over 67 TFLOP/s fp32 or 989 TFLOP/s bf16; the float32
+     encoder pack, which runs 3xTF32, at the cheaper of three TF32 products
+     at 495 TFLOP/s and one fp32 product, with the fp32-rate bound printed
+     beside it); the rasterizer's
      bound is computed in phase 3 (each face tested against the pixels of
      its own bounding box);
  11. the GAGAvatar path at full width, per ARTALK_GAGA_PRECISION (fast: bf16 SR
@@ -71,14 +74,18 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      SPLAT_TOL of the scene's largest |color| and all but SPLAT_FAR_SHARE of
      the values within SPLAT_NEAR of it, and faults planted in the
      plain version (each tile's order reversed; the 1/255 alpha cut dropped;
-     the MAX_RX / MAX_RY emission clamp dropped, where it changes the lists)
-     must break that limit;
+     the MAX_RX / MAX_RY emission clamp dropped, where it changes the lists;
+     on the avatar scene, each 16x16 block composited from the lists culled
+     by the plain culling rule with its box one pixel narrower) must break
+     that limit;
  13. GAGAvatar times by CUDA events on the avatar scene, per precision: the
      splat kernel, its plain version, the prepass (and the same prepass with
      torch.sort in place of the sort kernel), the SR and the whole frame,
      and the kernel's bound (the larger of bytes over 3.35 TB/s and the
      alpha evaluations and composites the pixels need before they stop over
-     67 TFLOP/s fp32);
+     67 TFLOP/s fp32), beside the alpha evaluations before the pixels stop
+     of the tile design and of the kernel's per-block culled lists (by the
+     plain rule);
  14. flash-attention kernel vs flash_attention_plain, float32 and bf16, at
      the wav2vec (1, 16, 199, 64) and HuBERT (1, 12, 199, 64) sites, on
      tests/test_attention.py's bias and padding cases, a wholly masked row
@@ -1016,15 +1023,22 @@ def phase_times(model, ar_packs: dict, enc_packs: dict) -> dict:
     flop = 2 * weights * t + cfg.num_hidden_layers * 2 * 2 * t * t * cfg.hidden_size
     for name, pack in enc_packs.items():
         moved = sum(v.numel() * v.element_size() for v in pack.values()) + 2 * x.numel() * 4
-        rate = FP32_FLOP_PER_S if name == "f32" else BF16_FLOP_PER_S
-        b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, flop / rate * 1e3
+        # float32 at the cheapest rate that keeps its precision (flash_bound's
+        # rule): three TF32 products at 495 TFLOP/s or one fp32 at 67, i.e.
+        # 3xTF32; before PR 7 it was bound at the fp32 rate (fp32_ms below)
+        fp32_ms = flop / FP32_FLOP_PER_S * 1e3
+        o_ms = (min(3 * flop / TF32_FLOP_PER_S * 1e3, fp32_ms) if name == "f32"
+                else flop / BF16_FLOP_PER_S * 1e3)
+        b_ms = moved / HBM_BYTES_PER_S * 1e3
         k = cuda_ms(lambda: enc_stack.encoder_block_stack(x, pack, num_heads=heads), 10)
         p = cuda_ms(lambda: enc_stack.encoder_block_stack_plain(x, pack, num_heads=heads), 3)
         lib = lib_ms[torch.float32 if name == "f32" else torch.bfloat16]
         bound = max(b_ms, o_ms)
         print(f"[times] encoder {name} per window: kernel {k:.4f} ms, plain {p:.4f} ms, "
               f"library {lib:.4f} ms, bound {bound:.4f} ms ({b_ms:.4f} bytes, {o_ms:.4f} "
-              f"operations; {flop / 1e9:.1f} GFLOP), share of the bound {bound / k:.3f}")
+              f"operations; {flop / 1e9:.1f} GFLOP"
+              + (f"; at the fp32 rate {fp32_ms:.4f}" if name == "f32" else "")
+              + f"), share of the bound {bound / k:.3f}")
         out[f"encoder/{name}"] = {"ms": k, "plain_ms": p, "bound_ms": bound,
                                   "bound_by": "bytes" if b_ms >= o_ms else "operations",
                                   "library_ms": lib}
@@ -1172,6 +1186,10 @@ def phase_splat(scenes: dict) -> dict:
                 geo, cols, reversed_tiles(inst, offsets), offsets, size),
                 "alpha cut dropped": without_alpha_cut(
                     lambda: gsplat.splat_tiles_plain(geo, cols, inst, offsets, size))}
+            if scene == "avatar":
+                faults["culling box shrunk 1 px"] = gsplat.composite_plain(
+                    geo, cols, inst, offsets, size,
+                    keep=gsplat.block_culling(geo, inst, offsets, size, shrink=1.0))[0]
             ugeo, ucols, uinst, uoffsets = unclamped_prepass(args, bf16)
             if not torch.equal(uoffsets, offsets) or not torch.equal(uinst, inst):
                 faults["clamp dropped"] = gsplat.splat_tiles_plain(ugeo, ucols, uinst, uoffsets,
@@ -1248,6 +1266,10 @@ def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
     profile_calls(lambda: gaga._frame(args[0][:NUM_FLAME_VERTS], args[5]), f"gaga {colors} frame")
     _, evaluated, composited = gsplat.composite_plain(geo, cols, inst, offsets, size)
     evaluated, composited = int(evaluated), int(composited)
+    # the alpha evaluations the kernel's per-block culled lists imply before
+    # the pixels stop, by the plain culling rule
+    keep = gsplat.block_culling(geo, inst, offsets, size)
+    culled = int(gsplat.composite_plain(geo, cols, inst, offsets, size, keep=keep)[1])
     # each input read once (the gaussians' 6 geometry floats and 32 colors,
     # the instance lists), the (32, size, size) float32 image written once
     moved = (geo.shape[0] * (6 * 4 + 32 * cols.element_size()) + inst.numel() * 4
@@ -1263,8 +1285,10 @@ def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
     print(f"[times] gsplat/{colors} bound: {moved} bytes -> {bytes_ms:.5f} ms; "
           f"{composited} composites x ({SPLAT_EVAL_FLOP} + {SPLAT_COMPOSITE_FLOP}) FLOP -> "
           f"{ops_ms:.5f} ms; the kernel reaches {bound / kernel_ms:.3f} of the bound "
-          f"(it evaluates {evaluated} pairs of its listed tiles, "
-          f"{evaluated / composited:.2f} per composite)")
+          f"(the tile design evaluates {evaluated} pairs of its listed tiles before the "
+          f"pixels stop, {evaluated / composited:.2f} per composite; the per-block culled lists, "
+          f"which keep {keep.float().mean().item():.4f} of the (block, instance) pairs, "
+          f"{culled}, {culled / composited:.2f} per composite)")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
             "prepass_ms": prep_ms, "prepass_torch_sort_ms": prep_lib_ms, "sr_ms": sr_ms,

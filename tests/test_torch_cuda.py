@@ -13,7 +13,8 @@ contraction, so face ids and depths must be bit-identical. The block stacks
 sum in another order than cuBLAS: float32 packs are held to 1e-4 (features)
 and 1e-5 (keys and values), bf16 and int8 packs to 5e-2 (the AR stack) and to
 tests/test_encoder_fused.py's 0.08 and 0.15 (the encoder stack); a batch row
-must equal the same row run alone exactly. The splat kernel and its plain
+must equal the same row run alone exactly, also four encoder windows in one
+launch. The splat kernel and its plain
 version composite the same instance lists in the same order, but sum in
 another order (the plain version's transmittance is a cumprod, its colors a
 matmul); a transmittance that rounds the other way at T_EPS moves the stop of
@@ -150,6 +151,22 @@ def test_encoder_block_stack_matches_plain(cuda, mode, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_encoder_rows_equal_alone_at_pool_capacity(cuda, mode):
+    """Four windows in one launch (StreamPool's capacity, 796 rows over 13
+    row tiles): each equals the same window run alone bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    layers = _Layers(256, 1024, 2, 1e-5).requires_grad_(False)
+    for lin in (layers.q, layers.k, layers.v, layers.out, layers.fc1, layers.fc2):
+        tnn.linear_init(lin, gen)
+    pack = teb.pack_encoder_weights(layers.to(cuda), dtype=PACK_DTYPES[mode])
+    x = (torch.randn((4, 199, 256), generator=gen) * 0.5).to(cuda)
+    got = teb.encoder_block_stack(x, pack, num_heads=4)
+    for r in range(4):
+        assert torch.equal(got[r:r + 1], teb.encoder_block_stack(x[r:r + 1], pack, num_heads=4))
+
+
+@pytest.mark.cuda
 def test_block_stacks_reject_bad_inputs(cuda):
     pack = tab.pack_block_weights(_blocks().to(cuda), 4)
     x, ada, kc, vc = (t.to(cuda) for t in _ar_inputs(1, 5, 41))
@@ -228,6 +245,32 @@ def test_splat_matches_plain(cuda, size, bf16_colors):
         torch.cuda.synchronize()
         assert got.shape == (32, size, size) and got.dtype == torch.float32
         torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_colors", [False, True])
+def test_splat_dense_scene_matches_plain(cuda, bf16_colors):
+    """bench.py's splat scene (seed 3: 5023 head-sized gaussians and two
+    296^2 sheets, 180,255 in all; its densest tile lists about 25,000
+    splats) at 512 x 512: the culling kernel against splat_tiles_plain
+    within 2e-4 of the largest color."""
+    n_head, n_plane = 5023, 296 * 296
+    n = n_head + 2 * n_plane
+    rng = np.random.default_rng(3)
+    xyz = np.concatenate([rng.normal(0, 0.09, (n_head, 3)),
+                          rng.normal(0, 0.12, (2 * n_plane, 3))]).astype(np.float32)
+    colors = rng.random((n, 32)).astype(np.float32)
+    opac = (rng.random((n, 1)) * 0.9 + 0.05).astype(np.float32)
+    scales = (rng.random((n, 3)) * 0.004 + 0.001).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    cam = np.array([[-1, 0, 0, 0], [0, 1, 0, 0], [0, 0, -1, 5000.0 / 512]], np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (xyz, colors, opac, scales, q, cam)]
+    geo, cols, inst, offsets = tgs.prepass(*args, size=512, bf16_colors=bf16_colors)
+    got = tgs.splat_tiles(geo, cols, inst, offsets, 512)
+    want = tgs.splat_tiles_plain(geo, cols, inst, offsets, 512)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
 
 
 @pytest.mark.cuda

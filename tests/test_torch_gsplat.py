@@ -127,3 +127,76 @@ def test_plain_counts_pairs():
     counts = torch.diff(offsets.long())
     assert 0 < composited <= evaluated <= int(counts.sum()) * tgs.GTILE_H * tgs.GTILE_W
     assert torch.equal(image, tgs.rasterize_gaussians_plain(*args, size=SIZE))
+
+
+def _splats_8px():
+    """A seeded scene of about 8 px splats (radius 3 sigma), as the
+    random-init avatar has them, many to a tile."""
+    rng = np.random.default_rng(7)
+    n = 3000
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return [jnp.asarray(np.asarray(a, np.float32)) for a in (
+        rng.normal(0, 0.1, (n, 3)), rng.random((n, 32)), rng.random((n, 1)),
+        rng.random((n, 3)) * 0.002 + 0.0015, q, CAM)]
+
+
+CULL_SCENES = {**{name: args for name, (args, _) in SCENES.items()}, "splats_8px": _splats_8px()}
+
+
+def _culled(name, shrink=0.0, bf16=False):
+    """(full lists, each block's culled list, keep), each list's result
+    composite_plain's (image, evaluated, composited)."""
+    geo, colors, inst, offsets = tgs.prepass(*_torch(CULL_SCENES[name]), size=SIZE,
+                                             bf16_colors=bf16)
+    keep = tgs.block_culling(geo, inst, offsets, SIZE, shrink=shrink)
+    return (tgs.composite_plain(geo, colors, inst, offsets, SIZE),
+            tgs.composite_plain(geo, colors, inst, offsets, SIZE, keep=keep), keep)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(CULL_SCENES))
+def test_culled_blocks_equal_full_lists(name, bf16):
+    """Each 16x16 block composited from its culled list equals the whole
+    lists bit for bit: the rule culls only instances that add nothing to any
+    pixel of the block, so the composites are the same and fewer pairs are
+    evaluated. On the dense scenes it culls most instances."""
+    full, culled, keep = _culled(name, bf16=bf16)
+    assert torch.equal(full[0], culled[0])
+    assert culled[2] == full[2] and culled[1] <= full[1]
+    if name in ("random", "splats_8px"):
+        assert keep.float().mean() < 0.3 and culled[1] < full[1] / 2
+
+
+def test_shrunk_culling_changes_an_image():
+    """The same rule with its box one pixel narrower culls instances that
+    do add to a pixel, so the comparison above can fail."""
+    worst = {name: (culled[0] - full[0]).abs().max().item()
+             for name in ("random", "splats_8px")
+             for full, culled, _ in [_culled(name, shrink=1.0)]}
+    assert max(worst.values()) > 1e-3, worst
+
+
+def test_culling_keeps_degenerate_and_drops_faint():
+    """Conics that are not finite or not positive definite are kept
+    wherever they lie; instances with opacity below 1/255 are culled even
+    at the block's centre; a sound conic is kept near the block and culled
+    far from it."""
+    rows = [  # mx, my, ca, cb, cc, opacity
+        (300.0, 300.0, 1.0, 2.0, 1.0, 0.9),       # det < 0
+        (300.0, 300.0, -1.0, 0.0, -1.0, 0.9),     # negative definite
+        (300.0, 300.0, float("nan"), 0.0, 1.0, 0.9),
+        (300.0, 300.0, 1.0, 0.0, float("inf"), 0.9),
+        (8.0, 8.0, 1.0, 0.0, 1.0, 1.0 / 256.0),   # faint, at the centre
+        (8.0, 8.0, 1.0, 0.0, 1.0, 0.9),           # sound, at the centre
+        (300.0, 8.0, 1.0, 0.0, 1.0, 0.9),         # sound, far off in x
+    ]
+    geo = torch.tensor([[*r, 0.0, 0.0] for r in rows], dtype=torch.float32)
+    num_tiles = (SIZE // tgs.GTILE_W) * (SIZE // tgs.GTILE_H)
+    offsets = torch.full((num_tiles + 1,), len(rows), dtype=torch.int32)
+    offsets[0] = 0
+    keep = tgs.block_culling(geo, torch.arange(len(rows), dtype=torch.int32), offsets, SIZE)
+    assert keep[:4].all()
+    assert not keep[4].any()
+    assert keep[5, 0] and not keep[5, 1:].any()
+    assert not keep[6].any()
