@@ -1,7 +1,7 @@
 // Shared device code of the two block-stack kernels (ar_block_stack.cu,
-// encoder_block_stack.cu): a persistent-grid matrix product stage with the
-// LayerNorm of its input rows and its epilogue folded in, an attention stage,
-// and the small helpers both use.
+// encoder_block_stack.cu): the attention stage on the CUDA cores (the AR
+// blocks' attention against the KV cache, and the float32 encoder pack's),
+// the cooperative launch, and the small helpers both use.
 //
 // Both kernels are one cooperative launch per call. Every stage hands out
 // work items (output tiles, or attention rows of one head) round-robin over
@@ -9,11 +9,9 @@
 // barrier. Activations and intermediates live in global scratch that the
 // wrapper allocates; at these sizes (at most a few MB) it stays in L2.
 //
-// Numerics: products are plain fp32 FMA (no TF32, no tensor cores). For bf16
-// and int8 weight packs both operands of every product are rounded to bf16
-// first and accumulated in fp32, which is what the Pallas kernels do with
-// their bf16 compute dtype; int8 weights are exact in bf16 and the per-output
-// scale multiplies the fp32 result of each scale chunk of the contraction.
+// Numerics of the attention: fp32 FMA; for bf16 and int8 weight packs q, k,
+// p and v are rounded to bf16 first and accumulated in fp32, which is what
+// the Pallas kernels do with their bf16 compute dtype.
 
 #pragma once
 
@@ -29,12 +27,7 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 32;   // rows of an output tile
-constexpr int kTN = 64;   // columns of an output tile
-constexpr int kTK = 32;   // contraction step
-constexpr int kApitch = kTM + 1;
 constexpr int kMaxHeadDim = 128;
-constexpr int kMaxLnWidth = 1024;  // LayerNorm rows are held in registers, 32 a lane
 
 // error code of the entry points when the grid cannot be co-resident
 constexpr int kNotCoResident = -1;
@@ -84,209 +77,6 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
-enum Epilogue { kStore = 0, kGeluTanh = 1, kGeluErf = 2, kResidual = 3 };
-
-// out[M, N] = epilogue(A[M, K] @ W[K, N] + bias), W row-major in the pack's type.
-struct Gemm {
-  int M, N, K;
-  const float* a;  // (M, K), row stride lda; written earlier in this kernel
-  int lda;
-  // ln != 0: A = (a - mean) * rstd * (s + s_add) + t over each row of a, with
-  // s and t of row stride st_ld (0: one row for all rows)
-  int ln;
-  float eps;
-  const float* s;
-  const float* t;
-  int st_ld;
-  float s_add;
-  int round_a;          // round A to bf16 before the product
-  const void* w;        // (K, N)
-  const float* bias;    // (N)
-  const float* scales;  // int8 packs: (K / scale_chunk, N); else null
-  int scale_chunk;
-  int splits;           // contraction splits; > 1: partial sums, then a reduction pass
-  float* partial;       // (splits, M, N) scratch when splits > 1
-  int epi;
-  float* out;           // (M, N), row stride ldo; may alias resid
-  int ldo;
-  const float* resid;   // kResidual: out = resid + (y + bias) * gate
-  int ld_resid;
-  const float* gate;    // null: gate 1
-  int ld_gate;
-};
-
-constexpr int gemm_smem_floats() { return kTK * kTN + kTK * kApitch + 2 * kTM; }
-
-__device__ __forceinline__ void epilogue(const Gemm& g, int row, int n, float y) {
-  y += g.bias[n];
-  float* o = g.out + static_cast<size_t>(row) * g.ldo + n;
-  switch (g.epi) {
-    case kGeluTanh: *o = gelu_tanh(y); break;
-    case kGeluErf: *o = gelu_erf(y); break;
-    case kResidual: {
-      const float gate = g.gate != nullptr ? g.gate[static_cast<size_t>(row) * g.ld_gate + n]
-                                           : 1.0f;
-      *o = g.resid[static_cast<size_t>(row) * g.ld_resid + n] + y * gate;
-      break;
-    }
-    default: *o = y;
-  }
-}
-
-// The items of a product: (row tile, column tile, contraction split), walked
-// by the whole grid. N must be a multiple of kTN and K of kTK * splits (the
-// wrappers check). Each thread owns 2 rows x 4 columns of a 32 x 64 tile; the
-// next contraction step's operands are loaded into registers while the
-// current one is multiplied out of shared memory.
-template <typename WT>
-__device__ void gemm_items(const Gemm& g, float* smem) {
-  float* Ws = smem;                      // [kTK][kTN]
-  float* As = Ws + kTK * kTN;            // [kTK][kApitch], A transposed
-  float* mean_s = As + kTK * kApitch;    // [kTM]
-  float* rstd_s = mean_s + kTM;          // [kTM]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int row_tiles = (g.M + kTM - 1) / kTM;
-  const int col_tiles = g.N / kTN;
-  const int items = row_tiles * col_tiles * g.splits;
-  const int split_len = g.K / g.splits;
-  const WT* w = static_cast<const WT*>(g.w);
-  constexpr int kAPer = kTM * kTK / kThreads;  // A elements per thread and step
-  constexpr int kWPer = kTK * kTN / kThreads;  // W elements per thread and step
-
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int m0 = (item % row_tiles) * kTM;
-    const int rest = item / row_tiles;
-    const int split = rest % g.splits;
-    const int n0 = (rest / g.splits) * kTN;
-    const int k_begin = split * split_len, k_end = k_begin + split_len;
-    if (g.ln) {
-      for (int r = warp; r < kTM; r += kWarps) {
-        const int row = m0 + r;
-        float mean = 0.0f, rstd = 0.0f;
-        if (row < g.M) {
-          const float* x = g.a + static_cast<size_t>(row) * g.lda;
-          float xv[kMaxLnWidth / 32];
-          float sum = 0.0f;
-#pragma unroll
-          for (int u = 0; u < kMaxLnWidth / 32; ++u) {
-            xv[u] = lane + 32 * u < g.K ? x[lane + 32 * u] : 0.0f;
-            sum += xv[u];
-          }
-          mean = warp_sum(sum) / static_cast<float>(g.K);
-          float sq = 0.0f;
-#pragma unroll
-          for (int u = 0; u < kMaxLnWidth / 32; ++u) {
-            const float c = lane + 32 * u < g.K ? xv[u] - mean : 0.0f;
-            sq += c * c;
-          }
-          rstd = rsqrtf(warp_sum(sq) / static_cast<float>(g.K) + g.eps);
-        }
-        if (lane == 0) {
-          mean_s[r] = mean;
-          rstd_s[r] = rstd;
-        }
-      }
-      __syncthreads();
-    }
-    float a_reg[kAPer], s_reg[kAPer], t_reg[kAPer];
-    WT w_reg[kWPer];
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int u = 0; u < kAPer; ++u) {
-        const int i = tid + u * kThreads, row = m0 + i / kTK, col = k0 + i % kTK;
-        a_reg[u] = s_reg[u] = t_reg[u] = 0.0f;
-        if (row < g.M) {
-          a_reg[u] = g.a[static_cast<size_t>(row) * g.lda + col];
-          if (g.ln) {
-            const size_t o = static_cast<size_t>(row) * g.st_ld + col;
-            s_reg[u] = g.s[o];
-            t_reg[u] = g.t[o];
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kWPer; ++u) {
-        const int i = tid + u * kThreads;
-        w_reg[u] = w[static_cast<size_t>(k0 + i / kTN) * g.N + n0 + i % kTN];
-      }
-    };
-    load(k_begin);
-    float acc[2][4] = {}, tot[2][4] = {};
-    for (int k0 = k_begin; k0 < k_end; k0 += kTK) {
-#pragma unroll
-      for (int u = 0; u < kAPer; ++u) {
-        const int i = tid + u * kThreads, m = i / kTK, k = i % kTK, row = m0 + m;
-        float v = a_reg[u];
-        if (row < g.M) {
-          if (g.ln) v = (v - mean_s[m]) * rstd_s[m] * (s_reg[u] + g.s_add) + t_reg[u];
-          if (g.round_a) v = round_bf16(v);
-        }
-        As[k * kApitch + m] = v;
-      }
-#pragma unroll
-      for (int u = 0; u < kWPer; ++u) Ws[tid + u * kThreads] = to_f(w_reg[u]);
-      __syncthreads();
-      if (k0 + kTK < k_end) load(k0 + kTK);
-#pragma unroll 8
-      for (int kk = 0; kk < kTK; ++kk) {
-        const float a0 = As[kk * kApitch + ty * 2];
-        const float a1 = As[kk * kApitch + ty * 2 + 1];
-        const float4 wv = *reinterpret_cast<const float4*>(Ws + kk * kTN + tx * 4);
-        acc[0][0] = fmaf(a0, wv.x, acc[0][0]);
-        acc[0][1] = fmaf(a0, wv.y, acc[0][1]);
-        acc[0][2] = fmaf(a0, wv.z, acc[0][2]);
-        acc[0][3] = fmaf(a0, wv.w, acc[0][3]);
-        acc[1][0] = fmaf(a1, wv.x, acc[1][0]);
-        acc[1][1] = fmaf(a1, wv.y, acc[1][1]);
-        acc[1][2] = fmaf(a1, wv.z, acc[1][2]);
-        acc[1][3] = fmaf(a1, wv.w, acc[1][3]);
-      }
-      __syncthreads();
-      // int8: scale each scale chunk's sum (a split never straddles a chunk)
-      if (g.scales != nullptr && ((k0 + kTK) % g.scale_chunk == 0 || k0 + kTK == k_end)) {
-        const float* sc = g.scales + static_cast<size_t>(k0 / g.scale_chunk) * g.N + n0 + tx * 4;
-        for (int i = 0; i < 2; ++i)
-          for (int j = 0; j < 4; ++j) {
-            tot[i][j] += acc[i][j] * sc[j];
-            acc[i][j] = 0.0f;
-          }
-      }
-    }
-    for (int i = 0; i < 2; ++i) {
-      const int row = m0 + ty * 2 + i;
-      if (row >= g.M) continue;
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx * 4 + j;
-        const float y = g.scales != nullptr ? tot[i][j] : acc[i][j];
-        if (g.splits > 1)
-          g.partial[(static_cast<size_t>(split) * g.M + row) * g.N + n] = y;
-        else
-          epilogue(g, row, n, y);
-      }
-    }
-  }
-}
-
-// One product stage, ending in a grid-wide barrier (none after the kernel's
-// last stage, `last`). With splits, the partial sums are added in split order
-// after a barrier, so each output's arithmetic depends only on its own row.
-template <typename WT>
-__device__ void gemm(const Gemm& g, float* smem, cg::grid_group& grid, bool last = false) {
-  gemm_items<WT>(g, smem);
-  if (g.splits > 1) {
-    grid.sync();
-    const size_t total = static_cast<size_t>(g.M) * g.N;
-    for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; e < total;
-         e += static_cast<size_t>(gridDim.x) * kThreads) {
-      float y = 0.0f;
-      for (int sp = 0; sp < g.splits; ++sp) y += g.partial[sp * total + e];
-      epilogue(g, static_cast<int>(e / g.N), static_cast<int>(e % g.N), y);
-    }
-  }
-  if (!last) grid.sync();
-}
-
 // Softmax attention of T new query rows per batch row against
 // [prefix cached keys | the T new keys], one head at a time.
 struct Attn {
@@ -303,7 +93,7 @@ struct Attn {
   const float* qscale;     // (H)
   float logit_scale;       // encoder: logits * logit_scale
   int round;               // round q, k, p and v to bf16 before the products
-  float* out;              // (B * T, d)
+  void* out;               // (B * T, d) in the output type OT
   void* k_out;             // AR: (B, T, d) normalised new keys in the cache type; else null
   void* v_out;
 };
@@ -328,7 +118,7 @@ inline __host__ __device__ int attn_smem_floats(int keys, int hd) {
   return keys * (hd + 1) + kWarps * keys + kWarps * hd;
 }
 
-template <typename CT>
+template <typename CT, typename OT = float>
 __device__ void attention(const Attn& a, float* smem) {
   const int L = a.prefix + a.T, hd = a.hd, pitch = hd + 1;
   float* kv = smem;                    // [L][hd + 1]: keys, then values
@@ -421,11 +211,11 @@ __device__ void attention(const Attn& a, float* smem) {
 
     if (live) {
       const float* p = ps + warp * L;
-      float* dst = a.out + static_cast<size_t>(b * a.T + qi) * a.d + col0;
+      OT* dst = static_cast<OT*>(a.out) + static_cast<size_t>(b * a.T + qi) * a.d + col0;
       for (int c = lane; c < hd; c += 32) {
         float o = 0.0f;
         for (int j = 0; j < L; ++j) o = fmaf(p[j], kv[j * pitch + c], o);
-        dst[c] = o / z;
+        dst[c] = from_f<OT>(o / z);
       }
     }
     __syncthreads();  // before the next item overwrites shared memory

@@ -20,7 +20,7 @@
 // against 25 MB of bf16 weights, so each stage is short and the grid-wide
 // barriers between stages and the latency of each item count as much.
 //
-// What the design does about it (csrc/encoder_stages.cuh): the products run
+// What the design does about it (csrc/mma_stages.cuh): the products run
 // on the tensor cores (mma.sync: bf16 for bf16 and int8 packs, whose
 // reference rounds both operands to bf16; 3xTF32 for float32) in output
 // tiles of 128 rows, 64 columns wide for q/k/v and fc1 (96 and 128 items at
@@ -44,7 +44,7 @@
 // computed in the same order whatever the batch, so its result equals its
 // batch-1 result bit for bit.
 
-#include "encoder_stages.cuh"
+#include "mma_stages.cuh"
 
 // Field order and types must match EncParams in ops/encoder_block_stack.py.
 struct EncParams {
@@ -80,10 +80,12 @@ struct EncParams {
 namespace {
 
 constexpr int kHeadDim = 64;   // the wrapper checks
+constexpr int kBM = 128;       // rows of an output tile
+constexpr int kStages = 4;     // depth of the cp.async ring
 
 template <typename WT>
 __global__ void __launch_bounds__(enc::kThreads, 1) encoder_kernel(EncParams p) {
-  using AT = typename enc::Tiles<WT, 128>::A;
+  using AT = typename enc::Tiles<WT, kBM, 128, kStages>::A;
   constexpr bool kF32 = sizeof(WT) == sizeof(float);
   extern __shared__ __align__(16) unsigned char smem[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(enc::kThreads, 1) encoder_kernel(EncParams p) 
     const float* x = i == 0 ? p.x : p.y;
     const size_t di = static_cast<size_t>(i) * d;
 
-    enc::mma_gemm<WT, 64>({M, 3 * d, d, p.xa, wqkv + di * 3 * d,
+    enc::mma_gemm<WT, kBM, 64, kStages>({M, 3 * d, d, p.xa, wqkv + di * 3 * d,
                        p.sqkv ? p.sqkv + 3 * di : nullptr, d, 1, enc::kBias, p.bqkv + 3 * di,
                        p.qkv, nullptr}, smem);
     grid.sync();
@@ -114,7 +116,7 @@ __global__ void __launch_bounds__(enc::kThreads, 1) encoder_kernel(EncParams p) 
       a.q = static_cast<const float*>(p.qkv);
       a.k = a.q + d; a.v = a.q + 2 * d; a.ld = 3 * d;
       a.l2norm = 0; a.logit_scale = scale;
-      a.round = 0; a.out = static_cast<float*>(p.attn);
+      a.round = 0; a.out = p.attn;
       bs::attention<float>(a, reinterpret_cast<float*>(smem));
     } else {
       enc::tc_attention<kHeadDim>({p.B, p.T, p.H, d,
@@ -123,18 +125,19 @@ __global__ void __launch_bounds__(enc::kThreads, 1) encoder_kernel(EncParams p) 
     }
     grid.sync();
 
-    enc::mma_gemm<WT, 128>({M, d, d, p.attn, wout + di * d, p.sout ? p.sout + di : nullptr, d,
-                       p.sp_out, enc::kPartial, nullptr, nullptr, p.partial}, smem);
+    enc::mma_gemm<WT, kBM, 128, kStages>({M, d, d, p.attn, wout + di * d,
+                                          p.sout ? p.sout + di : nullptr, d, p.sp_out,
+                                          enc::kPartial, nullptr, nullptr, p.partial}, smem);
     grid.sync();
     enc::row_pass<AT>({M, d, p.partial, p.sp_out, p.bout + di, x, p.y, p.ln2s + di,
                        p.ln2b + di, p.eps, p.xa}, smem);
     grid.sync();
 
-    enc::mma_gemm<WT, 64>({M, hid, d, p.xa, wfc1 + di * hid,
+    enc::mma_gemm<WT, kBM, 64, kStages>({M, hid, d, p.xa, wfc1 + di * hid,
                        p.sfc1 ? p.sfc1 + static_cast<size_t>(i) * hid : nullptr, d, 1,
                        enc::kGelu, p.bfc1 + static_cast<size_t>(i) * hid, p.h, nullptr}, smem);
     grid.sync();
-    enc::mma_gemm<WT, 128>({M, d, hid, p.h, wfc2 + di * hid,
+    enc::mma_gemm<WT, kBM, 128, kStages>({M, d, hid, p.h, wfc2 + di * hid,
                        p.sfc2 ? p.sfc2 + static_cast<size_t>(i) * hid : nullptr,  // (hid / d) x d
                        d, p.sp_fc2, enc::kPartial, nullptr, nullptr, p.partial}, smem);
     grid.sync();
@@ -153,8 +156,9 @@ int smem_bytes(const EncParams& p) {
   const int attn = sizeof(WT) == sizeof(float)
                        ? bs::attn_smem_floats(p.T, kHeadDim) * static_cast<int>(sizeof(float))
                        : enc::AttnTiles<kHeadDim>::bytes(p.T);
-  const int gemm = enc::Tiles<WT, 128>::kBytes > enc::Tiles<WT, 64>::kBytes
-                       ? enc::Tiles<WT, 128>::kBytes : enc::Tiles<WT, 64>::kBytes;
+  using Wide = enc::Tiles<WT, kBM, 128, kStages>;
+  using Narrow = enc::Tiles<WT, kBM, 64, kStages>;
+  const int gemm = Wide::kBytes > Narrow::kBytes ? Wide::kBytes : Narrow::kBytes;
   return attn > gemm ? attn : gemm;
 }
 

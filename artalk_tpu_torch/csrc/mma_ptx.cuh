@@ -1,5 +1,5 @@
 // PTX wrappers of the tensor-core kernels (flash_attention.cu,
-// encoder_stages.cuh): cp.async, ldmatrix, mma.sync, and the TF32 and bf16
+// mma_stages.cuh): cp.async, ldmatrix, mma.sync, and the TF32 and bf16
 // roundings of their operands.
 
 #pragma once

@@ -39,7 +39,7 @@ PackDict = Dict[str, torch.Tensor]
 LAUNCHES = 0
 
 SOURCE = CSRC / "ar_block_stack.cu"
-HEADERS = (CSRC / "block_stack_common.cuh",)
+HEADERS = (CSRC / "mma_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
 BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
 _LIB = None
 
@@ -54,9 +54,9 @@ class _ArParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x", "ada", "wqkv", "wproj", "wfc1", "wfc2", "bqkv", "bproj", "bfc1", "bfc2",
         "qscale", "sqkv", "sproj", "sfc1", "sfc2", "kc", "vc", "feats", "k_new", "v_new",
-        "qkv", "attn", "h", "partial")] + [(n, ctypes.c_int) for n in (
-        "B", "pn", "d", "H", "hidden", "depth", "cache_len", "start", "wtype", "ctype",
-        "sp_qkv", "sp_proj", "sp_fc1", "sp_fc2")]
+        "xa", "qkv", "attn", "h", "partial", "prof")] + [(n, ctypes.c_int) for n in (
+        "B", "pn", "d", "H", "hidden", "depth", "cache_len", "start", "wtype", "ctype", "bm",
+        "ln_width", "sp_proj", "sp_fc2")]
 
 
 # ---------------------------------------------------------------------------
@@ -206,14 +206,16 @@ def build() -> float:
 
 
 def check_shapes(d: int, hidden: int, num_heads: int) -> None:
-    """What the kernels' tiling takes: widths in whole 64-column tiles, at
-    most 1024 (a LayerNorm row is held in registers), and head dims of 32 to
+    """What the kernels' tiling takes: widths in whole 64-column tiles, from
+    128 (the LayerNorm sums of a row as float4 vectors, as torch reads them)
+    to 1024 (four values a thread in the row passes), and head dims of 32 to
     128 in steps of 32."""
     hd = d // num_heads
-    if d % 64 or d > 1024 or hidden % d or hd * num_heads != d or hd % 32 or hd > 128:
+    if (d % 64 or not 128 <= d <= 1024 or hidden % d or hd * num_heads != d or hd % 32
+            or hd > 128):
         raise ValueError(f"block stack kernel: d={d}, hidden={hidden}, heads={num_heads} "
-                         "need d % 64 == 0, d <= 1024, hidden % d == 0 and a head dim of "
-                         "32, 64, 96 or 128")
+                         "need d % 64 == 0, 128 <= d <= 1024, hidden % d == 0 and a head dim "
+                         "of 32, 64, 96 or 128")
 
 
 def check_pack(pack: PackDict, device: torch.device) -> None:
@@ -229,35 +231,57 @@ def check_pack(pack: PackDict, device: torch.device) -> None:
         raise ValueError("int8 packs need their scales, and only they have them")
 
 
-TILE_M, TILE_N, TILE_K = 32, 64, 32   # the kernels' output tile and contraction step
+TILE_N, TILE_K = 64, 64   # csrc/ar_block_stack.cu: columns of a product tile, bf16 step
+# profile slots of the kernel (csrc/ar_block_stack.cu, enum Stage), as CTA 0
+# sees them: per stage its own ns from a barrier to the next, then per stage
+# its ns waiting in that barrier, then the barriers passed
+PROFILE_STAGES = ("row passes", "q/k/v", "attention", "projection", "fc1", "fc2")
+
+
+def ln_width(d: int, rows: int) -> int:
+    """The threads across a row that torch's CUDA reduction kernel takes for
+    a mean over ``rows`` contiguous rows of ``d`` float32 values, read as
+    float4 vectors (``set_block_dimension`` of ATen/native/cuda/Reduce.cuh,
+    512 threads a block): the order of the plain version's LayerNorm sums on
+    the card, which the kernel's row passes replay for ``rows`` = pn."""
+    def last_pow2(n):
+        return 1 << (n.bit_length() - 1)
+    dim0 = min(last_pow2(d // 4), 512)
+    dim1 = min(last_pow2(rows), 512)
+    height = min(dim1, 512 // min(dim0, 32))
+    return min(dim0, 512 // height)
+
+
+def row_tile(pn: int) -> int:
+    """Rows of the kernel's product tiles for a level of ``pn`` tokens: 32 up
+    to 64 tokens, 128 above; from pn, never from the batch."""
+    return 32 if pn <= 64 else 128
 
 
 def contraction_splits(rows: int, products, d: int, sms: int) -> list:
     """How many ways each (N, K) product's contraction is split: the most that
-    still give at most one work item per CTA of the grid (two per SM) when
-    ``rows`` (the tokens of one batch row) fill few tiles. The count depends
-    on the product's shape, ``rows`` and the card, never on the batch, so a
-    row's sums are the same at any batch size. A split never straddles a
-    ``d``-row int8 scale chunk, and there are at most 16."""
+    still give at most one work item per CTA of the grid (one per SM) when
+    ``rows`` (the tokens of one batch row) fill few row tiles; each split a
+    whole number of 64-deep steps, at most 16. The count depends on the
+    product's shape, ``rows`` and the card, never on the batch, so a row's
+    sums are the same at any batch size. A split lies within one ``d``-row
+    int8 scale chunk or covers whole chunks."""
     splits = []
     for n, k in products:
-        base = -(-rows // TILE_M) * (n // TILE_N)
-        steps, chunk_steps = k // TILE_K, d // TILE_K
-        valid = [s for s in range(1, min(16, steps) + 1) if steps % s == 0
-                 and (chunk_steps % (steps // s) == 0 or (steps // s) % chunk_steps == 0)
-                 and base * s <= 2 * sms]
+        base = -(-rows // row_tile(rows)) * (n // TILE_N)
+        valid = [s for s in range(1, 17) if k % (s * TILE_K) == 0
+                 and (d % (k // s) == 0 or (k // s) % d == 0) and base * s <= sms]
         splits.append(valid[-1] if valid else 1)
     return splits
 
 
 def split_products(rows: int, batch: int, d: int, hidden: int, device: torch.device):
-    """Contraction splits of a block's four products (q/k/v, projection, fc1,
-    fc2) and the scratch for their partial sums."""
-    products = ((3 * d, d), (d, d), (hidden, d), (d, hidden))
-    splits = contraction_splits(rows, products, d,
+    """Contraction splits of the two products whose row passes add the
+    partial sums (the projection, fc2) and the scratch for those sums."""
+    splits = contraction_splits(rows, ((d, d), (d, hidden)), d,
                                 torch.cuda.get_device_properties(device).multi_processor_count)
-    size = max([s * batch * rows * n for (n, _), s in zip(products, splits) if s > 1] or [1])
-    return splits, torch.empty(size, dtype=torch.float32, device=device)
+    return splits, torch.empty(max(splits) * batch * rows * d, dtype=torch.float32,
+                               device=device)
 
 
 def ptr(t: Optional[torch.Tensor]):
@@ -285,10 +309,15 @@ def ar_block_stack(x: torch.Tensor, ada: torch.Tensor, pack: PackDict,
     Returns (feats (B, pn, d) float32, k_new and v_new (depth, B, pn, d) in the
     cache dtype, k_new L2-normalised); the caller writes them at ``start``.
     A CPU tensor goes through ``ar_block_stack_plain``."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return ar_block_stack_plain(x, ada, pack, k_cache, v_cache, start=start,
                                     num_heads=num_heads)
+    _check_inputs(x, ada, pack, k_cache, v_cache, start, num_heads)
+    return _launch(x, ada, pack, k_cache, v_cache, start, num_heads)
+
+
+def _check_inputs(x, ada, pack, k_cache, v_cache, start: int, num_heads: int) -> None:
+    """What the kernel takes; raises ValueError otherwise."""
     if x.device.type != "cuda":
         raise ValueError(f"ar_block_stack: unsupported device {x.device}")
     b, pn, d = x.shape
@@ -310,30 +339,59 @@ def ar_block_stack(x: torch.Tensor, ada: torch.Tensor, pack: PackDict,
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("ar_block_stack: caches must be contiguous on the tokens' device")
     check_pack(pack, x.device)
+
+
+def _launch(x, ada, pack, k_cache, v_cache, start: int, num_heads: int,
+            prof: Optional[torch.Tensor] = None):
+    """One launch of the kernel on checked inputs; ``prof`` (int64, the
+    kernel's profile slots) is added to when given."""
+    global LAUNCHES
     build()
     x = x.float().contiguous()
     ada = ada.float().contiguous()
+    b, pn, d = x.shape
+    depth, hidden = pack["wfc1"].shape[0], pack["wfc1"].shape[2]
     m = b * pn
     dev = x.device
+    # the products' operands: bf16 (the reference's rounding) unless the pack is float32
+    op = torch.float32 if pack_dtype(pack) == torch.float32 else torch.bfloat16
     feats = torch.empty((b, pn, d), dtype=torch.float32, device=dev)
     k_new = torch.empty((depth, b, pn, d), dtype=k_cache.dtype, device=dev)
     v_new = torch.empty_like(k_new)
+    xa = torch.empty((m, d), dtype=op, device=dev)
     qkv = torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
-    attn = torch.empty((m, d), dtype=torch.float32, device=dev)
-    h = torch.empty((m, hidden), dtype=torch.float32, device=dev)
-    splits, partial = split_products(pn, b, d, hidden, dev)
+    attn = torch.empty((m, d), dtype=op, device=dev)
+    h = torch.empty((m, hidden), dtype=op, device=dev)
+    (sp_proj, sp_fc2), partial = split_products(pn, b, d, hidden, dev)
     params = _ArParams(
         x=ptr(x), ada=ptr(ada), wqkv=ptr(pack["wqkv"]), wproj=ptr(pack["wproj"]),
         wfc1=ptr(pack["wfc1"]), wfc2=ptr(pack["wfc2"]), bqkv=ptr(pack["bqkv"]),
         bproj=ptr(pack["bproj"]), bfc1=ptr(pack["bfc1"]), bfc2=ptr(pack["bfc2"]),
         qscale=ptr(pack["qscale"]), sqkv=ptr(pack.get("sqkv")), sproj=ptr(pack.get("sproj")),
         sfc1=ptr(pack.get("sfc1")), sfc2=ptr(pack.get("sfc2")), kc=ptr(k_cache),
-        vc=ptr(v_cache), feats=ptr(feats), k_new=ptr(k_new), v_new=ptr(v_new),
-        qkv=ptr(qkv), attn=ptr(attn), h=ptr(h), partial=ptr(partial), B=b, pn=pn, d=d,
-        H=num_heads, hidden=hidden, depth=depth, cache_len=cache_len, start=start,
-        wtype=WEIGHT_TYPES[pack_dtype(pack)], ctype=CACHE_TYPES[k_cache.dtype], sp_qkv=splits[0],
-        sp_proj=splits[1], sp_fc1=splits[2], sp_fc2=splits[3])
+        vc=ptr(v_cache), feats=ptr(feats), k_new=ptr(k_new), v_new=ptr(v_new), xa=ptr(xa),
+        qkv=ptr(qkv), attn=ptr(attn), h=ptr(h), partial=ptr(partial), prof=ptr(prof), B=b,
+        pn=pn, d=d, H=num_heads, hidden=hidden, depth=depth, cache_len=k_cache.shape[2],
+        start=start, wtype=WEIGHT_TYPES[pack_dtype(pack)], ctype=CACHE_TYPES[k_cache.dtype],
+        bm=row_tile(pn), ln_width=ln_width(d, pn), sp_proj=sp_proj, sp_fc2=sp_fc2)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check_launch("ar_block_stack", _LIB.artalk_ar_block_stack(ctypes.byref(params), stream))
     LAUNCHES += 1
     return feats, k_new, v_new
+
+
+def stage_times(x, ada, pack, k_cache, v_cache, *, start: int, num_heads: int,
+                reps: int = 1) -> Tuple[Dict[str, Tuple[float, float]], float]:
+    """``reps`` launches of the kernel on CUDA tensors, as ``ar_block_stack``
+    runs them, with the kernel's profile on. Returns, per stage, the ms per
+    launch that CTA 0 spends on its own work in it and waiting in the grid
+    barrier after it (the last row pass has no barrier), and the grid
+    barriers per launch."""
+    _check_inputs(x, ada, pack, k_cache, v_cache, start, num_heads)
+    n = len(PROFILE_STAGES)
+    prof = torch.zeros(2 * n + 1, dtype=torch.int64, device=x.device)
+    for _ in range(reps):
+        _launch(x, ada, pack, k_cache, v_cache, start, num_heads, prof)
+    ns = prof.cpu().tolist()
+    return ({name: (ns[i] / reps / 1e6, ns[n + i] / reps / 1e6)
+             for i, name in enumerate(PROFILE_STAGES)}, ns[-1] / reps)

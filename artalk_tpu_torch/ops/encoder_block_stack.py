@@ -31,7 +31,7 @@ from .ar_block_stack import (WEIGHT_TYPES, PackDict, check_launch, check_pack, c
 LAUNCHES = 0
 
 SOURCE = CSRC / "encoder_block_stack.cu"
-HEADERS = (CSRC / "encoder_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
+HEADERS = (CSRC / "mma_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
 BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
 _LIB = None
 
@@ -48,7 +48,7 @@ class _EncParams(ctypes.Structure):
 
 
 HEAD_DIM = 64        # the kernel's head dim (wav2vec2: 1024 / 16)
-TILE_M, TILE_N, TILE_K = 128, 128, 64   # csrc/encoder_stages.cuh: kBM, kBN, bf16 kBK
+TILE_M, TILE_N, TILE_K = 128, 128, 64   # csrc/mma_stages.cuh: kBM, kBN, bf16 kBK
 
 
 def encoder_splits(rows: int, d: int, hidden: int, sms: int) -> tuple:

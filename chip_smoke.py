@@ -16,7 +16,11 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      (up to 16 lines each);
   3. kernel vs plain version on the synthetic FLAME head at 512x512, 4 frames:
      face ids agree on >= 99.9 % of pixels, background exactly, zbuf to
-     rtol 1e-4 where both hit; ms per frame of both;
+     rtol 1e-4 where both hit; the setup kernel's planes equal face_planes
+     on the card and its cull and chunk boxes the plain setup's, bit for
+     bit; ms per frame by CUDA events of rasterize end to end, of the setup
+     and the raster kernel alone, and of the plain version; the (pixel, face)
+     pairs evaluated a frame by the chunk design and by the per-face cull;
   4. golden replay: the small config's seed-0 params
      (tests/fixtures/torch_golden_small_params.npz) on the card, 3 windows,
      against tests/fixtures/golden_small.npz: at most 1 of the 168 code bits
@@ -33,7 +37,8 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      largest value; each row of B = 5 within 1e-6 of the same row run alone;
      for bf16/int8 the first block alone within ONE_BLOCK's limits, which
      two planted faults (activations left unrounded, int8 fc2 with one scale
-     per channel) must break;
+     per channel) must break; the grid barriers a launch passes at each
+     level (counted by the kernel) beside the earlier CUDA-core design's;
   7. encoder block stack vs encoder_block_stack_plain at (1, 199, 1024), 24
      layers: float32 within atol = rtol 1e-4, bf16 and int8 0.04; two
      windows in one launch equal each window alone exactly; for bf16/int8 the
@@ -53,10 +58,12 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      and its plain version per pack (per level and per window), the encoder's
      library yardstick (torch.nn.TransformerEncoder, float32 without TF32 and
      bf16), and each kernel's bound (the larger of bytes over 3.35 TB/s and
-     operations over 67 TFLOP/s fp32 or 989 TFLOP/s bf16; the float32
-     encoder pack, which runs 3xTF32, at the cheaper of three TF32 products
-     at 495 TFLOP/s and one fp32 product, with the fp32-rate bound printed
-     beside it); the rasterizer's
+     operations over 989 TFLOP/s bf16; the float32 packs of both stacks,
+     which run 3xTF32, at the cheaper of three TF32 products at 495 TFLOP/s
+     and one fp32 product at 67, with the fp32-rate bound printed beside
+     it), per AR level beside the level's bound, with the share of each
+     stage of the AR kernel (row passes, q/k/v, attention, projection, fc1,
+     fc2) as its CTA 0 sees it; the rasterizer's
      bound is computed in phase 3 (each face tested against the pixels of
      its own bounding box);
  11. the GAGAvatar path at full width, per ARTALK_GAGA_PRECISION (fast: bf16 SR
@@ -394,23 +401,44 @@ def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
     if min(agree) < 0.999:
         raise AssertionError(f"face ids agree on only {min(agree):.5f} of pixels")
     identical = all(a == 1.0 for a in agree)
+    setup_equal = all(kernel_setup_equal(vs, faces) for vs in screens)
+    if not setup_equal:
+        raise AssertionError("the setup kernel's planes or boxes differ from the plain setup")
     ms = cuda_ms(lambda: [rasterizer.rasterize(vs, faces, height=IMAGE, width=IMAGE)
                           for vs in screens], 10) / len(screens)
     plain_ms = cuda_ms(lambda: [rasterizer.rasterize_plain(vs, faces, height=IMAGE, width=IMAGE)
                                 for vs in screens], 2) / len(screens)
-    planes, bbox, num_chunks = rasterizer._kernel_inputs(screens[0], faces)
+    planes, boxes, chunks = rasterizer.kernel_inputs(screens[0], faces, height=IMAGE, width=IMAGE)
     zbuf = torch.empty((IMAGE, IMAGE), device=dev)
     fid = torch.empty((IMAGE, IMAGE), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    kernel_only_ms = cuda_ms(lambda: rasterizer._LIB.artalk_rasterize(
-        planes.data_ptr(), bbox.data_ptr(), num_chunks, IMAGE, IMAGE,
+    setup_only_ms = cuda_ms(lambda: rasterizer._LIB.artalk_rasterize_setup(
+        screens[0].data_ptr(), faces.data_ptr(), faces.element_size(), screens[0].shape[0],
+        faces.shape[0], IMAGE, IMAGE, planes.data_ptr(), boxes.data_ptr(), chunks.data_ptr(),
+        stream), 50)
+    kernel_only_ms = cuda_ms(lambda: rasterizer._LIB.artalk_rasterize_tiles(
+        planes.data_ptr(), boxes.data_ptr(), chunks.data_ptr(), chunks.shape[0], IMAGE, IMAGE,
         zbuf.data_ptr(), fid.data_ptr(), stream), 50)
-    print(f"[kernel] {len(faces)} faces, {num_chunks} chunks, {IMAGE}x{IMAGE}: face ids agree "
-          f"on {min(agree):.6f} (bit-identical: {identical}), covered {np.mean(covered):.3f}, "
-          f"zbuf max abs err {max_err:.3g}")
-    # bound: the bytes it must move, or the coverage tests the z-buffer
-    # needs, each face against the pixel centres of its own bounding box (13
-    # fp32 operations each: three planes of 2 mul + 2 add, and w0 + w1),
+    # (pixel, face) pairs evaluated a frame: every face of every chunk whose
+    # box overlaps a tile (the chunk-only design), against the faces the
+    # per-face cull keeps (256 pixels a tile, the ragged edge included)
+    tile_px = rasterizer.TILE_W * rasterizer.TILE_H
+    chunk_pairs = np.mean([int(rasterizer.tile_hits(rasterizer.kernel_inputs(
+        vs, faces, height=IMAGE, width=IMAGE)[2], height=IMAGE, width=IMAGE).sum())
+        * rasterizer.FACE_CHUNK * tile_px for vs in screens])
+    culled_pairs = np.mean([int(rasterizer.face_culling(*rasterizer.kernel_inputs(
+        vs, faces, height=IMAGE, width=IMAGE)[1:], height=IMAGE, width=IMAGE).sum()) * tile_px
+        for vs in screens])
+    print(f"[kernel] {len(faces)} faces, {chunks.shape[0]} chunks, {IMAGE}x{IMAGE}: face ids "
+          f"agree on {min(agree):.6f} (bit-identical: {identical}), covered "
+          f"{np.mean(covered):.3f}, zbuf max abs err {max_err:.3g}; the setup kernel's planes "
+          f"equal face_planes and its boxes the plain setup's bit for bit: {setup_equal}")
+    print(f"[kernel] (pixel, face) pairs evaluated a frame: chunk design {chunk_pairs:.0f}, "
+          f"per-face culled {culled_pairs:.0f} ({culled_pairs / chunk_pairs:.4f} of them)")
+    # bound: the bytes the function must move (vertices and faces in, the
+    # 8-byte output pixels out), or the coverage tests the z-buffer needs,
+    # each face against the pixel centres of its own bounding box (13 fp32
+    # operations each: three planes of 2 mul + 2 add, and w0 + w1),
     # whichever takes longer
     tests = []
     for vs in screens:
@@ -418,18 +446,33 @@ def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
         lo = torch.ceil(tri[..., :2].amin(1) - 0.5).clamp(min=0)
         hi = torch.floor(tri[..., :2].amax(1) - 0.5).clamp(max=IMAGE - 1)
         tests.append(int((hi - lo + 1).clamp(min=0).prod(1).sum()))
-    moved = planes.numel() * 4 + bbox.numel() * 4 + IMAGE * IMAGE * 8
+    moved = (screens[0].numel() * 4 + faces.numel() * faces.element_size()
+             + IMAGE * IMAGE * 8)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = float(np.mean(tests)) * 13 / FP32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"[kernel] ms/frame: rasterize (setup + kernel) {ms:.4f}, kernel alone "
+    print(f"[kernel] ms/frame by CUDA events: rasterize (setup + raster kernels, end to end) "
+          f"{ms:.4f}, setup kernel alone {setup_only_ms:.4f}, raster kernel alone "
           f"{kernel_only_ms:.4f}, rasterize_plain {plain_ms:.4f}")
     print(f"[kernel] bound: {moved} bytes -> {bytes_ms:.5f} ms; {np.mean(tests):.0f} coverage "
-          f"tests a frame x 13 FLOP -> {ops_ms:.5f} ms; the kernel alone reaches "
-          f"{bound_ms / kernel_only_ms:.3f} of the bound")
+          f"tests a frame x 13 FLOP -> {ops_ms:.5f} ms; rasterize reaches "
+          f"{bound_ms / ms:.3f} of the bound, the raster kernel alone "
+          f"{bound_ms / kernel_only_ms:.3f}")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": None, "kernel_only_ms": kernel_only_ms}
+            "library_ms": None, "kernel_only_ms": kernel_only_ms, "setup_only_ms": setup_only_ms,
+            "pairs_chunk_design": chunk_pairs, "pairs_culled": culled_pairs}
+
+
+def kernel_setup_equal(vs: torch.Tensor, faces: torch.Tensor) -> bool:
+    """The setup kernel's planes against face_planes on the card and its cull
+    and chunk boxes against the plain setup on the CPU, bit for bit."""
+    planes, boxes, chunks = rasterizer.kernel_inputs(vs, faces, height=IMAGE, width=IMAGE)
+    padded = torch.cat([faces.long(), faces.new_zeros(
+        (planes.shape[0] - faces.shape[0], 3)).long()])
+    want = rasterizer.kernel_inputs_plain(vs.cpu(), faces.cpu(), height=IMAGE, width=IMAGE)
+    return (torch.equal(planes, torch.cat(rasterizer.face_planes(vs, padded), dim=1))
+            and torch.equal(boxes.cpu(), want[1]) and torch.equal(chunks.cpu(), want[2]))
 
 
 def phase_golden(dev: torch.device) -> None:
@@ -681,7 +724,40 @@ def phase_ar_kernel(model, packs: dict) -> dict:
         if name != "f32":
             phase_ar_one_block(model, name, pack)
         errs[name] = feats_err
+    print_ar_barriers(model, packs["bf16"])
     return errs
+
+
+def barriers_cuda_core_design(pn: int, depth: int, sms: int) -> int:
+    """Grid barriers a launch of the earlier CUDA-core AR kernel passed:
+    one after each block's attention and after each product, one more before
+    the reduction of a split product, none after the last product. Its splits
+    were the most that kept its 32 x 64 tiles (32-deep steps; a split within
+    or over whole d-row chunks) at two items per SM, at most 16."""
+    d, hidden = 768, 3072
+    per_block = 1
+    for n, k in ((3 * d, d), (d, d), (hidden, d), (d, hidden)):
+        base, steps, chunk_steps = -(-pn // 32) * (n // 64), k // 32, d // 32
+        valid = [s for s in range(1, min(16, steps) + 1) if steps % s == 0
+                 and (chunk_steps % (steps // s) == 0 or (steps // s) % chunk_steps == 0)
+                 and base * s <= 2 * sms]
+        per_block += 2 if valid and valid[-1] > 1 else 1
+    return depth * per_block - 1
+
+
+def print_ar_barriers(model, pack: dict) -> None:
+    """The grid barriers a launch passes, counted by the kernel, per level,
+    beside the earlier CUDA-core design's."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    now, before = [], []
+    for level, pn in enumerate(model.patch_nums):
+        x, ada, kc, vc, start = ar_inputs(model, 1, level, torch.bfloat16, seed=300 + level)
+        _, barriers = ar_stack.stage_times(x, ada, pack, kc, vc, start=start,
+                                           num_heads=model.num_heads)
+        now.append(int(barriers))
+        before.append(barriers_cuda_core_design(pn, model.depth, sms))
+    print(f"[ar] grid barriers per launch, levels pn {model.patch_nums}: {now} (counted by the "
+          f"kernel); the CUDA-core design {before}")
 
 
 def encoder_input(model, b: int = 1) -> torch.Tensor:
@@ -939,9 +1015,14 @@ def phase_pool(engine: ARTAvatarInferEngine) -> dict:
 
 
 def level_bound(model, pack: dict, level: int, cache_bytes: int):
-    """(bytes ms, operations ms) of one AR level at B = 1: each input read
-    once (weights, scales, biases, tokens, AdaLN rows, the cache prefix),
-    each output written once; 2 FLOP per weight per token plus attention."""
+    """(bytes ms, operations ms, operations ms at the fp32 rate) of one AR
+    level at B = 1: each input read once (weights, scales, biases, tokens,
+    AdaLN rows, the cache prefix), each output written once; 2 FLOP per
+    weight per token plus attention. A float32 pack's operations at the
+    cheapest rate that keeps its precision (flash_bound's rule, as the
+    encoder's): three TF32 products at 495 TFLOP/s or one fp32
+    product at 67, i.e. 3xTF32 (the fp32-rate bound is printed beside it);
+    bf16 and int8 packs at the bf16 tensor-core rate."""
     depth, d, pn = model.depth, model.embed_dim, model.patch_nums[level]
     start = model.prev_len + model.offsets[level]
     weights = sum(pack[n].numel() for n in ("wqkv", "wproj", "wfc1", "wfc2"))
@@ -949,8 +1030,12 @@ def level_bound(model, pack: dict, level: int, cache_bytes: int):
     moved += pn * d * 4 + depth * pn * 6 * d * 4 + 2 * depth * start * d * cache_bytes
     moved += pn * d * 4 + 2 * depth * pn * d * cache_bytes
     flop = 2 * weights * pn + depth * 2 * 2 * pn * (start + pn) * d
-    rate = FP32_FLOP_PER_S if pack["wqkv"].dtype == torch.float32 else BF16_FLOP_PER_S
-    return moved / HBM_BYTES_PER_S * 1e3, flop / rate * 1e3
+    fp32_ms = flop / FP32_FLOP_PER_S * 1e3
+    if pack["wqkv"].dtype == torch.float32:
+        ops_ms = min(3 * flop / TF32_FLOP_PER_S * 1e3, fp32_ms)
+    else:
+        ops_ms = flop / BF16_FLOP_PER_S * 1e3
+    return moved / HBM_BYTES_PER_S * 1e3, ops_ms, fp32_ms
 
 
 def library_encoder(model, dtype: torch.dtype) -> torch.nn.Module:
@@ -986,21 +1071,30 @@ def phase_times(model, ar_packs: dict, enc_packs: dict) -> dict:
     for name, pack in ar_packs.items():
         cache_dtype = torch.float32 if name == "f32" else torch.bfloat16
         cb = 4 if name == "f32" else 2
-        ms = plain = bound = 0.0
+        ms = plain = bound = old_bound = 0.0
         worst = (0.0, "bytes")
         for level, pn in enumerate(model.patch_nums):
             x, ada, kc, vc, start = ar_inputs(model, 1, level, cache_dtype, seed=300 + level)
             args = dict(start=start, num_heads=model.num_heads)
             k = cuda_ms(lambda: ar_stack.ar_block_stack(x, ada, pack, kc, vc, **args), 20)
             p = cuda_ms(lambda: ar_stack.ar_block_stack_plain(x, ada, pack, kc, vc, **args), 3)
-            b_ms, o_ms = level_bound(model, pack, level, cb)
+            b_ms, o_ms, fp32_ms = level_bound(model, pack, level, cb)
+            stages, _ = ar_stack.stage_times(x, ada, pack, kc, vc, reps=5, **args)
+            span = sum(work + wait for work, wait in stages.values())
             print(f"[times] ar {name} level {level} (pn {pn}): kernel {k:.4f} ms, plain "
                   f"{p:.4f} ms, bound {max(b_ms, o_ms):.4f} ms "
-                  f"({'bytes' if b_ms >= o_ms else 'operations'})")
+                  f"({'bytes' if b_ms >= o_ms else 'operations'}"
+                  + (f"; at the fp32 rate {max(b_ms, fp32_ms):.4f}" if name == "f32" else "")
+                  + f"), share of the bound {max(b_ms, o_ms) / k:.3f}; stages as CTA 0 sees "
+                  f"them over its span of {span:.4f} ms (own work + wait in the barrier after): "
+                  + ", ".join(f"{st} {work / span:.3f} + {wait / span:.3f}"
+                              for st, (work, wait) in stages.items()))
             ms, plain, bound = ms + k, plain + p, bound + max(b_ms, o_ms)
+            old_bound += max(b_ms, fp32_ms)
             worst = max(worst, (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"))
         print(f"[times] ar {name} per window: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bound:.4f} ms, share of the bound {bound / ms:.3f}")
+              f"{bound:.4f} ms" + (f" (at the fp32 rate {old_bound:.4f})" if name == "f32" else "")
+              + f", share of the bound {bound / ms:.3f}")
         out[f"ar/{name}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                              "bound_by": worst[1], "library_ms": None}
 

@@ -9,7 +9,9 @@ tests/conftest.py (which imports jax):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 The rasterizer evaluates the planes in the plain version's order without FMA
-contraction, so face ids and depths must be bit-identical. The block stacks
+contraction, so face ids and depths must be bit-identical, also with its
+per-face cull; its setup kernel must give the plain setup's planes and boxes
+bit for bit. The block stacks
 sum in another order than cuBLAS: float32 packs are held to 1e-4 (features)
 and 1e-5 (keys and values), bf16 and int8 packs to 5e-2 (the AR stack) and to
 tests/test_encoder_fused.py's 0.08 and 0.15 (the encoder stack); a batch row
@@ -130,6 +132,31 @@ def test_ar_block_stack_matches_plain(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_ar_rows_equal_alone(cuda, mode):
+    """At B = 1, 5 and 8 (up to 800 rows over 7 row tiles of 128, or 13 of
+    32), each batch row equals the same row run alone bit for bit: row tiles
+    and splits come from pn, never from the batch."""
+    pack = tab.pack_block_weights(_blocks().to(cuda), 4, dtype=PACK_DTYPES[mode])
+    cache_dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    for pn, start in ((5, 41), (50, 60), (100, 60)):
+        args = [t.to(cuda) for t in _ar_inputs(8, pn, start, cache_len=160,
+                                               cache_dtype=cache_dtype)]
+        alone = [tab.ar_block_stack(args[0][r:r + 1], args[1][:, r:r + 1].contiguous(), pack,
+                                    args[2][:, r:r + 1].contiguous(),
+                                    args[3][:, r:r + 1].contiguous(), start=start, num_heads=4)
+                 for r in range(8)]
+        for b in (1, 5, 8):
+            got = tab.ar_block_stack(args[0][:b], args[1][:, :b].contiguous(), pack,
+                                     args[2][:, :b].contiguous(), args[3][:, :b].contiguous(),
+                                     start=start, num_heads=4)
+            for r in range(b):
+                for g, a in zip((got[0][r:r + 1], got[1][:, r:r + 1], got[2][:, r:r + 1]),
+                                alone[r]):
+                    assert torch.equal(g, a), (mode, pn, b, r)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode,tol", [("f32", 1e-4), ("bf16", 0.08), ("int8", 0.15)])
 def test_encoder_block_stack_matches_plain(cuda, mode, tol):
     gen = torch.Generator().manual_seed(2)
@@ -196,6 +223,31 @@ def test_kernel_matches_plain(cuda):
         zp, fp = tr.rasterize_plain(vs, fs, height=h, width=w)
         torch.cuda.synchronize()
         assert torch.equal(fk, fp) and torch.equal(zk, zp), (h, w, len(faces))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["adversarial", "flame"])
+def test_kernel_culls_without_changing_the_output(cuda, scene):
+    """The setup kernel's planes, cull boxes and chunk boxes equal
+    kernel_inputs_plain's (face_planes and chunk_bboxes of the padded faces)
+    bit for bit; the per-face culled kernel equals rasterize_plain, which
+    evaluates every face of every chunk that overlaps a tile, on the
+    adversarial scene of tests/raster_scenes.py (needles whose planes cover
+    centres pixels beyond their vertices, slivers at the 1e-12 area cut,
+    vertices on tile edges, faces behind the camera) and on the FLAME head."""
+    from raster_scenes import adversarial_scene, flame_head
+
+    verts, faces, h, w = adversarial_scene() if scene == "adversarial" else flame_head()
+    want_inputs = tr.kernel_inputs_plain(verts, faces, height=h, width=w)
+    want = tr.rasterize_plain(verts, faces, height=h, width=w)
+    vs, fs = verts.to(cuda), faces.to(cuda)
+    for index_type in (torch.int64, torch.int32):
+        got_inputs = tr.kernel_inputs(vs, fs.to(index_type), height=h, width=w)
+        got = tr.rasterize(vs, fs.to(index_type), height=h, width=w)
+        torch.cuda.synchronize()
+        for g, x in zip(got_inputs, want_inputs):
+            assert torch.equal(g.cpu(), x)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.cuda

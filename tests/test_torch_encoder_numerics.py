@@ -1,5 +1,5 @@
 """A CPU rehearsal of the encoder block-stack kernel's arithmetic
-(csrc/encoder_stages.cuh) against encoder_block_stack_plain.
+(csrc/mma_stages.cuh) against encoder_block_stack_plain.
 
 The kernel computes each product on the tensor cores:
 

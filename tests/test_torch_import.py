@@ -119,3 +119,25 @@ def test_rasterize_gaussians_other_devices_raise():
             ((n, 3), (n, 32), (n, 1), (n, 3), (n, 4), (3, 4))]
     with pytest.raises(ValueError, match="unsupported device"):
         gsplat.rasterize_gaussians(*args, size=128)
+
+
+@pytest.mark.parametrize("name", ["ar_block_stack", "attention", "encoder_block_stack",
+                                  "gsplat", "rasterizer", "sort"])
+def test_kernel_headers_cover_the_includes(name):
+    """A kernel library is named by a hash of its SOURCE and HEADERS only, so
+    HEADERS must list every header the source reaches through #include "...":
+    a missing one would leave a stale library in place after that header
+    changed. Reads the files; needs no nvcc."""
+    import importlib
+    import re
+
+    mod = importlib.import_module(f"artalk_tpu_torch.ops.{name}")
+    reached, todo = set(), [mod.SOURCE]
+    while todo:
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', todo.pop().read_text(), re.M):
+            path = mod.SOURCE.parent / inc
+            if path not in reached:
+                reached.add(path)
+                todo.append(path)
+    assert reached <= set(getattr(mod, "HEADERS", ())), sorted(
+        p.name for p in reached - set(getattr(mod, "HEADERS", ())))
