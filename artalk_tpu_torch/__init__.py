@@ -19,16 +19,21 @@ and ``int8``), ``serving.StreamPool``, the GAGAvatar path of
 encoder: wav2vec2 (``models/wav2vec``; ``Wav2VecConfig.use_flash_attention``),
 HuBERT (``models/hubert``) and Mimi (``models/mimi``; ``"AUDIO_ENCODER":
 "mimi"`` in ``config.json``), the FLAME landmarks, the debug renderers
-(``models/renderer_extras``) and the motion metrics (``evaluation``;
-``python -m artalk_tpu_torch.evaluation``). Six hand-written CUDA kernels
+(``models/renderer_extras``), the motion metrics (``evaluation``;
+``python -m artalk_tpu_torch.evaluation``), and the serving surface: the HTTP
+server (``python -m artalk_tpu_torch.server``), the jax-free checkpoint
+converter (``python -m artalk_tpu_torch.convert_checkpoint``), top-k/top-p
+sampled decode, the web UI (``app_gradio``; ``cli --run_app``) and the
+metrics registry (``utils/metrics``). Six hand-written CUDA kernels
 carry them: the z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block
 stack (``csrc/ar_block_stack.cu``), the wav2vec2 encoder stack
 (``csrc/encoder_block_stack.cu``), the 32-channel gaussian splat
 (``csrc/gsplat.cu``), flash attention (``csrc/flash_attention.cu``) and the
 splat prepass's int32 key sort (``csrc/sort.cu``); everything else on the
 paths is plain PyTorch, and host media work (resampling, the Y4M writer) is
-the native C++ runtime of ``runtime/``, built with g++. On the CPU every kernel takes its plain version, which the tests
-(``python -m pytest tests/test_torch_*.py``) hold against the JAX package.
+the native C++ runtime of ``runtime/``, built with g++. On the CPU every
+kernel takes its plain version, which the tests (``python -m pytest
+tests/test_torch_*.py``) hold against the JAX package.
 ``ROADMAP.md`` lists what is still to be ported.
 """
 

@@ -2,13 +2,15 @@
 
     python -m artalk_tpu_torch.cli -a demo/eng1.wav [-l 750] [-s style_id]
                                    [--load_gaga -i synthetic_0] [--assets assets]
+    python -m artalk_tpu_torch.cli --run_app [--load_gaga]   # the web UI
 
 It runs on the CUDA device. The precision switches are environment variables,
 as in the JAX CLI, read by the engine: ``ARTALK_AR_PRECISION=exact|fast|int8``,
 ``ARTALK_AR_FUSED=1`` and, for the GAGAvatar renderer,
 ``ARTALK_GAGA_PRECISION=fast|exact``.
 
-``--run_app`` (the web UI) is not ported yet and raises.
+``--run_app`` serves the gradio web UI (``app_gradio.py``) instead; without
+gradio installed it raises ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -50,14 +52,16 @@ def resolve_shape_id(engine, shape_id: str, load_gaga: bool) -> str:
 
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
-    if args.run_app:
-        raise NotImplementedError(
-            "--run_app: the web UI is not ported yet (ROADMAP.md Queue 1 item 13)")
-    if not args.audio_path:
+    if not args.run_app and not args.audio_path:
         raise SystemExit("--audio_path / -a required")
     engine = ARTAvatarInferEngine(
         load_gaga=args.load_gaga, fix_pose=args.fix_pose, clip_length=args.clip_length,
         assets_dir=args.assets, image_size=args.image_size)
+    if args.run_app:
+        from .app_gradio import run_gradio_app
+
+        run_gradio_app(engine)
+        return ""
     audio = load_audio_16k_mono(args.audio_path)
     base = os.path.splitext(os.path.basename(args.audio_path))[0]
     save_name = f"{base}_{args.style_id.replace('.', '_')}_{args.shape_id.replace('.', '_')}"

@@ -19,6 +19,12 @@ The audio encoder follows the configuration: ``"AUDIO_ENCODER": "mimi"`` in
 codec, and ``Wav2VecConfig.use_flash_attention`` routes the wav2vec2 layers'
 attention through the flash-attention kernel.
 
+The engine feeds the metrics registry (``utils/metrics.GLOBAL_METRICS``) at
+the JAX engine's names and places: the stages ``inference.generate``,
+``inference.postprocess``, ``stream.window_step``, ``render.flame_verts`` and
+``render.rasterize``, the counters ``inference.windows``, ``inference.frames``
+and ``render.frames``. A stage times the host and adds no synchronisation.
+
 Importing this module turns TF32 off for matmuls and cuDNN convolutions:
 greedy code bits flip under TF32 (through the wav2vec conv frontend, the
 grouped pos-conv and the exact resize matrices), so exact mode needs full
@@ -43,6 +49,7 @@ from .models.nn import full_float32
 from .models.renderer import MeshRenderer
 from .ops.savgol import smooth_motion_savgol
 from .utils.assets import load_or_synthesize_flame
+from .utils.metrics import GLOBAL_METRICS
 from .utils.params import load_params_npz, params_from_flat
 from .utils.video import write_video
 
@@ -183,8 +190,12 @@ class ARTAvatarInferEngine:
         padded = np.zeros(n_windows * ws, np.float32)
         padded[: len(audio)] = audio[: n_windows * ws]
         chunks = torch.from_numpy(padded.reshape(n_windows, 1, ws)).to(self.device)
-        motions = self.model.generate(chunks, self._style_cond())
-        motions = self._postprocess(motions[:, :seq_length], self.fix_pose)
+        with GLOBAL_METRICS.stage("inference.generate"):
+            motions = self.model.generate(chunks, self._style_cond())
+        GLOBAL_METRICS.count("inference.windows", n_windows)
+        GLOBAL_METRICS.count("inference.frames", seq_length)
+        with GLOBAL_METRICS.stage("inference.postprocess"):
+            motions = self._postprocess(motions[:, :seq_length], self.fix_pose)
         clip_length = clip_length if clip_length is not None else self.clip_length
         return motions[0].cpu().numpy()[:clip_length]
 
@@ -208,8 +219,9 @@ class ARTAvatarInferEngine:
             buf[:n_valid] = chunk
             if state is None:
                 state = self.model.initial_state(style_cond)
-            state, motion = self.model.window_step(
-                state, torch.from_numpy(buf[None]).to(self.device), style_cond)
+            with GLOBAL_METRICS.stage("stream.window_step"):
+                state, motion = self.model.window_step(
+                    state, torch.from_numpy(buf[None]).to(self.device), style_cond)
             self.last_stream_state = state
             n_frames = math.ceil(n_valid / self.cfg.sample_rate * self.cfg.fps)
             yield motion[0].cpu().numpy()[:n_frames]
@@ -224,13 +236,17 @@ class ARTAvatarInferEngine:
         (which needs ``load_gaga=True``)."""
         motions = torch.from_numpy(np.asarray(pred_motions, np.float32)).to(self.device)
         t = motions.shape[0]
+        GLOBAL_METRICS.count("render.frames", int(t))
         if shape_id == "mesh":
             if shape_code is None:
                 shape = motions.new_zeros((t, 300))
             else:
                 code = torch.from_numpy(np.asarray(shape_code, np.float32).reshape(1, -1))
                 shape = code.to(self.device).expand(t, -1)
-            frames = self.mesh_renderer.render_frames(self.flame.motion_to_verts(shape, motions))
+            with GLOBAL_METRICS.stage("render.flame_verts"):
+                verts = self.flame.motion_to_verts(shape, motions)
+            with GLOBAL_METRICS.stage("render.rasterize"):
+                frames = self.mesh_renderer.render_frames(verts)
         else:
             if not hasattr(self, "gagavatar"):
                 raise RuntimeError(

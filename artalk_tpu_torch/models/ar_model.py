@@ -1,9 +1,10 @@
 """BitwiseARModel: VAR-style multi-scale autoregressive motion generator.
 
-Counterpart of ``artalk_tpu/models/ar_model.py`` on its default path: exact
-float32, greedy decode, the 12 AdaLN blocks run block by block (the JAX XLA
-scan). An audio-conditioned AdaLN transformer generates binary BSQ motion
-codes scale by scale (1 -> 5 -> 25 -> 50 -> 100 tokens) over 4 s windows, with
+Counterpart of ``artalk_tpu/models/ar_model.py`` on its inference paths:
+exact float32 by default, the 12 AdaLN blocks run block by block (the JAX XLA
+scan), greedy decode unless the caller asks for top-k/top-p sampling. An
+audio-conditioned AdaLN transformer generates binary BSQ motion codes scale
+by scale (1 -> 5 -> 25 -> 50 -> 100 tokens) over 4 s windows, with
 the previous window's encoded summary as an attention prefix.
 
 The decode is KV-cached as in JAX: each level's tokens run through the blocks
@@ -29,8 +30,11 @@ kernel at batch 1 only. A caller that decodes repeatedly builds the packs
 once into ``fused_pack`` / ``fused_audio_pack`` (the engine does); without
 them the decode packs inline.
 
-Not ported yet: top-k/top-p sampling and the teacher-forced
-``forward_logits`` (training).
+Sampling (``topk_topp_mask``, ``sample_with_top_k_top_p`` and the ``sample=``
+argument of the head, the window decode and the window steps) draws from a
+``torch.Generator`` on the logits' device, one draw per level in order, where
+JAX splits one key per window and per level: the filter is JAX's, the draws
+are not. Not ported yet: the teacher-forced ``forward_logits`` (training).
 """
 
 from __future__ import annotations
@@ -50,6 +54,37 @@ from .bsq import bits_to_values
 from .mimi import MimiEncoder
 from .style_encoder import StyleEncoder
 from .wav2vec import Wav2VecEncoder
+
+
+def topk_topp_mask(logits: torch.Tensor, top_k: int = 2,
+                   top_p: float = 0.95) -> torch.Tensor:
+    """VAR's sampling filter, as the JAX ``topk_topp_mask``: keep the top-k
+    logits per distribution (entries tied with the k-th stay), then drop the
+    ascending tail whose cumulative probability is <= 1 - top_p (the largest
+    logit is always kept). Removed entries go to -inf. The ascending sort is
+    stable, as ``jnp.argsort`` is, so tied logits keep their order."""
+    v = logits.shape[-1]
+    if top_k > 0 and top_k < v:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, -math.inf)
+    if top_p > 0:
+        sorted_logits, sort_idx = torch.sort(logits, dim=-1, stable=True)
+        remove = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1) <= (1.0 - top_p)
+        remove[..., -1:] = False
+        logits = logits.masked_fill(remove.scatter(-1, sort_idx, remove), -math.inf)
+    return logits
+
+
+def sample_with_top_k_top_p(logits: torch.Tensor, generator: torch.Generator,
+                            top_k: int = 2, top_p: float = 0.95) -> torch.Tensor:
+    """Categorical sample over the filtered logits (last axis), by the
+    Gumbel-max rule as ``jax.random.categorical``. ``generator`` lives on the
+    logits' device; the uniforms are kept above 0 so that a kept entry's
+    Gumbel noise is finite and a removed entry is never drawn."""
+    masked = topk_topp_mask(logits, top_k, top_p)
+    u = torch.rand(masked.shape, generator=generator, device=masked.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    return torch.argmax(masked + gumbel, dim=-1)
 
 
 class WindowState(NamedTuple):
@@ -304,15 +339,25 @@ class BitwiseARModel(nn.Module):
             x = x + (torch.matmul(h, wts["fc2_w"][i]) + wts["fc2_b"][i]) * g2
         return x
 
-    def _head_bits(self, feats: torch.Tensor,
-                   cond: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-        """AdaLN head + greedy per-bit argmax. ``cond`` is the precomputed
-        (scale, shift) at these positions."""
+    def _head_logits(self, feats: torch.Tensor,
+                     cond: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """AdaLN head: (B, L, code_dim, 2) float32 logits per bit. ``cond``
+        is the precomputed (scale, shift) at these positions."""
         scale, shift = cond
         feats = tnn.layer_norm(feats, eps=1e-6) * (scale + 1.0) + shift
         logits = self.head.out(feats).float()
         b, l, _ = logits.shape
-        return torch.argmax(logits.reshape(b, l, -1, 2), dim=-1).to(torch.int32)
+        return logits.reshape(b, l, -1, 2)
+
+    def _head_bits(self, feats: torch.Tensor, cond: Tuple[torch.Tensor, torch.Tensor],
+                   sample: Optional[tuple] = None) -> torch.Tensor:
+        """AdaLN head + per-bit decision: greedy argmax by default, or
+        top-k/top-p sampling when ``sample = (generator, top_k, top_p)``."""
+        logits = self._head_logits(feats, cond)
+        if sample is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        generator, top_k, top_p = sample
+        return sample_with_top_k_top_p(logits, generator, top_k, top_p).to(torch.int32)
 
     # ------------------------------------------------------------ window decode
 
@@ -346,8 +391,11 @@ class BitwiseARModel(nn.Module):
         return torch.cat([resize_area(feat, pn) for pn in self.patch_nums], dim=1)
 
     def decode_window(self, audio_cond: torch.Tensor, style_cond: torch.Tensor,
-                      prev_attn_feat: torch.Tensor) -> torch.Tensor:
-        """Greedy code bits of one window, (B, 181, code_dim) int32.
+                      prev_attn_feat: torch.Tensor, sample: Optional[tuple] = None
+                      ) -> torch.Tensor:
+        """Code bits of one window, (B, 181, code_dim) int32: greedy, or
+        top-k/top-p sampled level by level when ``sample = (generator, top_k,
+        top_p)``.
 
         With ``bf16_ar`` the block walk runs in bfloat16 (weights, AdaLN
         parameters, attention scales, the prefix and the caches); the head
@@ -385,7 +433,8 @@ class BitwiseARModel(nn.Module):
                 feats = self._run_level(tokens.to(cdt), ada, caches, level, w_qkv, b_qkv,
                                         scale_mul, wts)
             bits = self._head_bits(feats.float(),
-                                   (h_scale[:, off : off + pn], h_shift[:, off : off + pn]))
+                                   (h_scale[:, off : off + pn], h_shift[:, off : off + pn]),
+                                   sample)
             all_bits.append(bits)
             if level < len(self.patch_nums) - 1:
                 next_pn = self.patch_nums[level + 1]
@@ -415,15 +464,19 @@ class BitwiseARModel(nn.Module):
         return prefix
 
     def window_step(self, state: WindowState, audio_chunk: torch.Tensor,
-                    style_cond: torch.Tensor) -> Tuple[WindowState, torch.Tensor]:
+                    style_cond: torch.Tensor, sample: Optional[tuple] = None
+                    ) -> Tuple[WindowState, torch.Tensor]:
         """One sliding-window step: (B, window_samples) audio -> 100 motion
-        frames (B, window, motion_dim) + the new carry."""
-        return self.window_step_cond(state, self.audio_condition(audio_chunk), style_cond)
+        frames (B, window, motion_dim) + the new carry. ``sample`` as in
+        ``decode_window``."""
+        return self.window_step_cond(state, self.audio_condition(audio_chunk), style_cond,
+                                     sample)
 
     def window_step_cond(self, state: WindowState, audio_cond: torch.Tensor,
-                         style_cond: torch.Tensor) -> Tuple[WindowState, torch.Tensor]:
+                         style_cond: torch.Tensor, sample: Optional[tuple] = None
+                         ) -> Tuple[WindowState, torch.Tensor]:
         """Window step with the audio condition already computed."""
-        bits = self.decode_window(audio_cond, style_cond, state.prev_attn_feat)
+        bits = self.decode_window(audio_cond, style_cond, state.prev_attn_feat, sample)
         _, this_motion = self.vae.decode_from_bits(state.prev_bits, bits)
         new_prev_bits, _ = self.vae.encode_to_bits(this_motion)
         new_prefix = self._prefix_from_bits(style_cond, new_prev_bits)
@@ -431,9 +484,13 @@ class BitwiseARModel(nn.Module):
             [state.prev_attn_feat[:, new_prefix.shape[1]:], new_prefix], dim=1)
         return WindowState(new_prev_bits, rolled), this_motion
 
-    def generate(self, audio_chunks: torch.Tensor, style_cond: torch.Tensor) -> torch.Tensor:
-        """Offline greedy decode: (N, B, window_samples) chunks ->
-        (B, N*window, motion_dim) motions.
+    def generate(self, audio_chunks: torch.Tensor, style_cond: torch.Tensor,
+                 sample_generator: Optional[torch.Generator] = None, top_k: int = 2,
+                 top_p: float = 0.95) -> torch.Tensor:
+        """Offline decode: (N, B, window_samples) chunks ->
+        (B, N*window, motion_dim) motions. Greedy unless ``sample_generator``
+        (on the model's device) is given; then the bits are top-k/top-p
+        sampled, window after window from that one generator.
 
         Unlike the JAX package, which encodes all N windows in one batched
         pass, the encoder runs window by window: offline and streaming decode
@@ -441,8 +498,9 @@ class BitwiseARModel(nn.Module):
         bit on the card."""
         n, b = audio_chunks.shape[0], audio_chunks.shape[1]
         state = self.initial_state(style_cond, batch_size=b)
+        sample = None if sample_generator is None else (sample_generator, top_k, top_p)
         motions = []
         for i in range(n):
-            state, motion = self.window_step(state, audio_chunks[i], style_cond)
+            state, motion = self.window_step(state, audio_chunks[i], style_cond, sample)
             motions.append(motion)
         return torch.cat(motions, dim=1)

@@ -4,6 +4,11 @@ The library is compiled with nvcc for sm_90a into ``_build/`` beside the
 package at first use and named by a hash of its source and the headers it
 includes, so an edited source is rebuilt and an unchanged one is reused. The
 kernels have a plain C interface and are bound with ctypes.
+
+Server threads can launch a kernel first at the same time: each source has a
+per-process lock (``library_lock``), which a kernel's loader holds from its
+check of the loaded library until it has set it, and nvcc writes to a
+temporary file named by the process and the thread.
 """
 
 from __future__ import annotations
@@ -13,13 +18,24 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+
+_LOCKS_GUARD = threading.Lock()
+_LOCKS: Dict[Path, threading.RLock] = {}
+
+
+def library_lock(source: Path) -> threading.RLock:
+    """The process's lock of one source's build and load (reentrant: a
+    loader holds it around ``build_library``, which takes it too)."""
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(Path(source), threading.RLock())
 
 
 def build_library(source: Path, headers: Sequence[Path] = ()) -> Tuple[ctypes.CDLL, float, str]:
@@ -32,17 +48,20 @@ def build_library(source: Path, headers: Sequence[Path] = ()) -> Tuple[ctypes.CD
         digest.update(path.read_bytes())
     lib_path = BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
     report = ""
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC),
-               "-o", str(tmp), str(source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-        report = "\n".join(line for line in proc.stderr.splitlines()
-                           if "registers" in line or "spill" in line)
-    return ctypes.CDLL(str(lib_path)), time.perf_counter() - t0, report
+    with library_lock(source):
+        if not lib_path.exists():
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                   "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC),
+                   "-o", str(tmp), str(source)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, lib_path)
+            report = "\n".join(line for line in proc.stderr.splitlines()
+                               if "registers" in line or "spill" in line)
+        lib = ctypes.CDLL(str(lib_path))
+    return lib, time.perf_counter() - t0, report

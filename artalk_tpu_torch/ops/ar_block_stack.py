@@ -31,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..models import nn as tnn
-from ._nvcc import CSRC, build_library
+from ._nvcc import CSRC, build_library, library_lock
 
 PackDict = Dict[str, torch.Tensor]
 
@@ -196,13 +196,14 @@ def build() -> float:
     """Build (or reuse) and load the kernel's shared library. Returns the
     seconds spent, 0.0 when it was already loaded."""
     global _LIB, BUILD_REPORT
-    if _LIB is not None:
-        return 0.0
-    lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
-    lib.artalk_ar_block_stack.argtypes = [ctypes.POINTER(_ArParams), ctypes.c_void_p]
-    lib.artalk_ar_block_stack.restype = ctypes.c_int
-    _LIB = lib
-    return seconds
+    with library_lock(SOURCE):
+        if _LIB is not None:
+            return 0.0
+        lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
+        lib.artalk_ar_block_stack.argtypes = [ctypes.POINTER(_ArParams), ctypes.c_void_p]
+        lib.artalk_ar_block_stack.restype = ctypes.c_int
+        _LIB = lib
+        return seconds
 
 
 def check_shapes(d: int, hidden: int, num_heads: int) -> None:

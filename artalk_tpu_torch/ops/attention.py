@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from ._nvcc import CSRC, build_library
+from ._nvcc import CSRC, build_library, library_lock
 
 NEG_INF = -1e30   # the running max's start, as in the JAX kernel
 MAX_HEAD_DIM = 128
@@ -62,15 +62,16 @@ def build() -> float:
     """Build (or reuse) and load the kernel's shared library. Returns the
     seconds spent, 0.0 when it was already loaded."""
     global _FN, BUILD_REPORT
-    if _FN is not None:
-        return 0.0
-    lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
-    fn = lib.artalk_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _FN = fn
-    return seconds
+    with library_lock(SOURCE):
+        if _FN is not None:
+            return 0.0
+        lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
+        fn = lib.artalk_flash_attention
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+        return seconds
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from ..models import nn as tnn
-from ._nvcc import CSRC, build_library
+from ._nvcc import CSRC, build_library, library_lock
 from .ar_block_stack import (WEIGHT_TYPES, PackDict, check_launch, check_pack, check_shapes,
                              pack_dtype, pack_weights, ptr, rounder, softmax_attend,
                              weight_matmul)
@@ -125,13 +125,14 @@ def build() -> float:
     """Build (or reuse) and load the kernel's shared library. Returns the
     seconds spent, 0.0 when it was already loaded."""
     global _LIB, BUILD_REPORT
-    if _LIB is not None:
-        return 0.0
-    lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
-    lib.artalk_encoder_block_stack.argtypes = [ctypes.POINTER(_EncParams), ctypes.c_void_p]
-    lib.artalk_encoder_block_stack.restype = ctypes.c_int
-    _LIB = lib
-    return seconds
+    with library_lock(SOURCE):
+        if _LIB is not None:
+            return 0.0
+        lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
+        lib.artalk_encoder_block_stack.argtypes = [ctypes.POINTER(_EncParams), ctypes.c_void_p]
+        lib.artalk_encoder_block_stack.restype = ctypes.c_int
+        _LIB = lib
+        return seconds
 
 
 def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,

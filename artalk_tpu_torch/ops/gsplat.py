@@ -44,7 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._nvcc import CSRC, build_library
+from ._nvcc import CSRC, build_library, library_lock
 from .sort import sort_keys
 
 CHANNELS = 32
@@ -201,15 +201,16 @@ def build() -> float:
     """Build (or reuse) and load the kernel's shared library. Returns the
     seconds spent, 0.0 when it was already loaded."""
     global _LIB, BUILD_REPORT
-    if _LIB is not None:
-        return 0.0
-    lib, seconds, BUILD_REPORT = build_library(SOURCE)
-    fn = lib.artalk_gsplat
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _LIB = lib
-    return seconds
+    with library_lock(SOURCE):
+        if _LIB is not None:
+            return 0.0
+        lib, seconds, BUILD_REPORT = build_library(SOURCE)
+        fn = lib.artalk_gsplat
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+        return seconds
 
 
 def splat_tiles(geo: torch.Tensor, colors: torch.Tensor, inst: torch.Tensor,

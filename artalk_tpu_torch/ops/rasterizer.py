@@ -26,7 +26,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from ._nvcc import CSRC, build_library
+from ._nvcc import CSRC, build_library, library_lock
 
 FACE_CHUNK = 128   # faces per culling chunk
 BIG = 3.4e38
@@ -226,19 +226,20 @@ def build() -> float:
     """Build (or reuse) and load the kernels' shared library. Returns the
     seconds spent, 0.0 when it was already loaded."""
     global _LIB
-    if _LIB is not None:
-        return 0.0
-    lib, seconds, _ = build_library(SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.artalk_rasterize.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
-                                     ptr, ptr]
-    lib.artalk_rasterize_setup.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr,
-                                           ptr]
-    lib.artalk_rasterize_tiles.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
-    for fn in (lib.artalk_rasterize, lib.artalk_rasterize_setup, lib.artalk_rasterize_tiles):
-        fn.restype = ctypes.c_int
-    _LIB = lib
-    return seconds
+    with library_lock(SOURCE):
+        if _LIB is not None:
+            return 0.0
+        lib, seconds, _ = build_library(SOURCE)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.artalk_rasterize.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                                         ptr, ptr]
+        lib.artalk_rasterize_setup.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                                               ptr]
+        lib.artalk_rasterize_tiles.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
+        for fn in (lib.artalk_rasterize, lib.artalk_rasterize_setup, lib.artalk_rasterize_tiles):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+        return seconds
 
 
 def _check(verts_screen: torch.Tensor, faces: torch.Tensor):

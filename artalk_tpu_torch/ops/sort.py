@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from ._nvcc import CSRC, build_library
+from ._nvcc import CSRC, build_library, library_lock
 
 INT32_MAX = 2 ** 31 - 1
 MAX_KEYS = 2 ** 30 - 1   # the look-back status words keep 30 bits of count
@@ -62,16 +62,17 @@ def build() -> float:
     """Build (or reuse) and load the kernel's shared library. Returns the
     seconds spent, 0.0 when it was already loaded."""
     global _LIB, BUILD_REPORT
-    if _LIB is not None:
-        return 0.0
-    lib, seconds, BUILD_REPORT = build_library(SOURCE)
-    lib.artalk_sort_keys.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                                     + [ctypes.POINTER(ctypes.c_int)])
-    lib.artalk_sort_keys.restype = ctypes.c_int
-    lib.artalk_sort_meta_words.argtypes = [ctypes.c_int]
-    lib.artalk_sort_meta_words.restype = ctypes.c_longlong
-    _LIB = lib
-    return seconds
+    with library_lock(SOURCE):
+        if _LIB is not None:
+            return 0.0
+        lib, seconds, BUILD_REPORT = build_library(SOURCE)
+        lib.artalk_sort_keys.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                                         + [ctypes.POINTER(ctypes.c_int)])
+        lib.artalk_sort_keys.restype = ctypes.c_int
+        lib.artalk_sort_meta_words.argtypes = [ctypes.c_int]
+        lib.artalk_sort_meta_words.restype = ctypes.c_longlong
+        _LIB = lib
+        return seconds
 
 
 def sort_keys(keys: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,16 @@ join the pytree path with ``//`` (``artalk_tpu/utils/checkpoint.py``:
 that tree name for name and shape for shape (linear weights ``(in, out)``,
 layer stacks along a leading depth axis), so a flat key maps to a state-dict
 key by replacing ``//`` with ``.`` and nothing else changes.
+
+``flatten_params`` / ``save_params_npz`` write such an archive from a nested
+tree of dicts and lists (``utils/convert.py``'s output) with the keys of the
+JAX ``save_params``, without jax.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -20,6 +25,36 @@ from ..config import ModelConfig
 from ..models.ar_model import BitwiseARModel
 
 SEP = "//"
+
+
+def flatten_params(tree: Any) -> Dict[str, np.ndarray]:
+    """Flat ``//``-keyed arrays of a nested tree, as the JAX ``_flatten``
+    keys a pytree: dict keys by name (in sorted order), list and tuple items
+    by index, ``None`` leaves dropped, each leaf ``np.asarray`` of itself
+    (dtype kept)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node: Any, path: tuple) -> None:
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], path + (str(key),))
+        elif isinstance(node, (list, tuple)):
+            for i, item in enumerate(node):
+                walk(item, path + (str(i),))
+        else:
+            flat[SEP.join(path)] = np.asarray(node)
+
+    walk(tree, ())
+    return flat
+
+
+def save_params_npz(tree: Any, path: str) -> None:
+    """Save a nested parameter tree as a flat-key compressed .npz, the
+    archive the JAX ``save_params`` writes."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flatten_params(tree))
 
 
 def load_params_npz(path: str) -> Dict[str, np.ndarray]:

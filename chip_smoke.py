@@ -2,10 +2,10 @@
 """GPU smoke run of artalk_tpu_torch: builds the CUDA kernels, checks each
 against its plain version, replays the seed-0 goldens, and drives the
 speech -> mesh-video path at the production width in every precision mode,
-StreamPool, the speech -> gaussian-splat avatar (GAGAvatar) path, the
-alternate audio encoders (flash-attention wav2vec2, HuBERT, Mimi), the
-instance-key sort of the splat prepass, the debug point and texture
-renderers, and the motion metrics.
+StreamPool, the HTTP server, sampled decode, the speech -> gaussian-splat
+avatar (GAGAvatar) path, the alternate audio encoders (flash-attention
+wav2vec2, HuBERT, Mimi), the instance-key sort of the splat prepass, the
+debug point and texture renderers, and the motion metrics.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
@@ -30,6 +30,11 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      inference -> (250, 106) finite; stream over 4 s chunks equals the raw
      offline decode to atol 1e-4; rendering(shape_id="mesh") at 512x512 gives
      250 frames; the rasterizer kernel launched at least 250 times on the way;
+     the metrics registry (utils/metrics.GLOBAL_METRICS), reset before one
+     more inference, stream and rendering, holds the JAX engine's stage names
+     with 3 windows and 250 frames, and a torch.profiler trace of that
+     inference (utils/metrics.device_trace) holds the inference.generate
+     range;
   6. AR block stack vs ar_block_stack_plain at the production geometry (12
      blocks, d 768), every level at its real cache offset, B = 1 and B = 5,
      float32 / bf16 / int8 packs: float32 feats within 1e-4 and k/v within
@@ -164,6 +169,26 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      base and wav2vec2's conv frontend equal the same calls after
      full_float32() within TF32_PROBE_TOL, and the caller's flags are back
      after the calls.
+ 25. the HTTP server (artalk_tpu_torch.server.MotionServer) on phase 9's int8
+     engine, capacity 2, at most 4 sessions, on 127.0.0.1 (run right after
+     phase 9): /healthz names the card; session a posts a warm-up and a timed
+     4 s chunk alone, then a and b post two chunks each from two threads at
+     once, each pair riding one pool step; every session's rows equal the
+     same chunks through a fresh StreamPool of capacity 2 to 1e-5 (phase 9's
+     isolation rule), with 5 AR and 1 encoder launch per tick; 413 for a
+     chunk over one window, 409 for a second chunk in flight, 404 for an
+     unknown session or route, auto-grow to 4 sessions and then 503;
+     /v1/motion on phase 5's audio equals engine.inference to 1e-5;
+     /v1/video?shape_id=mesh returns a 250-frame 512x512 video with at least
+     250 rasterizer launches; ms per chunk request at 1 and at 2 sessions
+     and of /v1/motion by the host clock (the tick's SERVER_TICK_MS
+     aggregation included);
+ 26. sampled decode on phase 5's exact engine (run right after phase 5) and
+     on phase 9's int8 engine (after phase 25): generate with top_k=1,
+     top_p=0 equals the greedy generate exactly; one generator seed repeats
+     its motions, seeds 0 and 1 differ; every bit that _head_bits samples on
+     seeded features lies inside topk_topp_mask of the same logits; in int8,
+     5 AR launches and 1 encoder launch a window.
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -179,6 +204,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -192,6 +218,7 @@ from artalk_tpu_torch.models.flame import FlameModel
 from artalk_tpu_torch.models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS
 from artalk_tpu_torch.models.gagavatar.generators import transform_emoca_to_p3d
 from artalk_tpu_torch.models import mimi as tmimi
+from artalk_tpu_torch.models.ar_model import topk_topp_mask
 from artalk_tpu_torch.models.hubert import HubertEncoder
 from artalk_tpu_torch.models.renderer import MeshRenderer
 from artalk_tpu_torch.models.renderer_extras import PointRenderer, TextureRenderer
@@ -202,6 +229,7 @@ from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.ops import sort
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
+from artalk_tpu_torch.utils.metrics import GLOBAL_METRICS, device_trace
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
 from artalk_tpu_torch.utils.video import read_y4m
 
@@ -310,6 +338,12 @@ EVAL_RTOL, EVAL_ATOL = 1e-5, 1e-9
 # only a float32 algorithm chosen otherwise remains (rounding level); TF32
 # convolutions differ by about 1e-3
 TF32_PROBE_TOL = 1e-5
+# phase 25: the server's aggregation window before each pool step, long enough
+# that two chunks posted at once from two threads ride one step
+SERVER_TICK_MS = 20.0
+# phase 5's registry check: the JAX engine's names (artalk_tpu/engine.py)
+REGISTRY_STAGES = ("inference.generate", "inference.postprocess", "stream.window_step",
+                   "render.flame_verts", "render.rasterize")
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -560,7 +594,15 @@ def phase_full(dev: torch.device):
     run = drive(engine, audio, "full")
     check_launches("full", run, {"ar": 0, "encoder": 0, "flash": 0})
     motions = run["motions"]
+    GLOBAL_METRICS.reset()
+    trace_dir = os.path.join(ROOT, "render_results", "chip_smoke", "trace")
+    with device_trace(trace_dir) as prof:
+        engine.inference(audio)
+    traced = {e.key for e in prof.key_averages()}
+    ws = engine.model.window_samples
+    list(engine.stream(audio[i : i + ws] for i in range(0, len(audio), ws)))
     out_path, n_frames, launches, render_ms = render_mesh(engine, audio, motions, "chip_smoke")
+    check_registry(GLOBAL_METRICS.snapshot(), traced, run["n_windows"])
     verts = engine.flame.motion_to_verts(torch.zeros(250, 300, device=dev),
                                          torch.from_numpy(motions).to(dev))
     t0 = time.perf_counter()
@@ -573,7 +615,23 @@ def phase_full(dev: torch.device):
           f"ms/frame; render_frames alone {t_frames * 1e3 / 250:.2f} ms/frame; {launches} "
           "kernel launches")
     print(f"[full] wrote {out_path} ({n_frames if n_frames is not None else 'encoded'} frames)")
-    return launches, window0_bits(engine, audio), run["ms_window"], audio, motions
+    return launches, window0_bits(engine, audio), run["ms_window"], audio, motions, engine
+
+
+def check_registry(snapshot: dict, traced: set, n_windows: int) -> None:
+    """Phase 5's registry check: after one inference, stream and rendering of
+    the 10 s clip, the JAX engine's counters and stage counts, and the
+    inference.generate range among the profiler's events."""
+    print(f"[full] GLOBAL_METRICS {json.dumps(snapshot, sort_keys=True)}")
+    want = {"inference.windows": n_windows, "inference.frames": 250, "render.frames": 250}
+    counts = {name: snapshot.get(f"{name}_count") for name in REGISTRY_STAGES}
+    want_counts = {name: n_windows if name == "stream.window_step" else 1
+                   for name in REGISTRY_STAGES}
+    if snapshot["counters"] != want or counts != want_counts:
+        raise AssertionError(f"registry {snapshot['counters']} {counts}, want {want} "
+                             f"{want_counts}")
+    if "inference.generate" not in traced:
+        raise AssertionError("the profiler trace has no inference.generate range")
 
 
 def ar_inputs(model, b: int, level: int, cache_dtype: torch.dtype, seed: int):
@@ -1012,6 +1070,243 @@ def phase_pool(engine: ARTAvatarInferEngine) -> dict:
         raise AssertionError(f"StreamPool launches {launches}, want {want}")
     return {"ms_tick": ms_tick, "launches": launches, "stream_err": stream_err,
             "agree": min(agree)}
+
+
+def http_raw(url: str, method: str = "GET", data: bytes = None):
+    """One request to the phase-25 server on this host: (status, headers,
+    body bytes), error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/octet-stream")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+def http(url: str, method: str = "GET", data: bytes = None):
+    """``http_raw`` with the JSON body parsed: (status, body)."""
+    status, _, body = http_raw(url, method, data)
+    return status, json.loads(body.decode())
+
+
+def post_chunks(base: str, chunks: dict) -> dict:
+    """POST each session's chunk from a thread of its own, all released at
+    once; returns sid -> the motion rows."""
+    barrier, out = threading.Barrier(len(chunks)), {}
+
+    def post(sid, chunk):
+        barrier.wait(timeout=60)
+        out[sid] = http(f"{base}/v1/sessions/{sid}/audio", "POST", chunk.tobytes())
+
+    threads = [threading.Thread(target=post, args=item) for item in chunks.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or any(r[0] != 200 for r in out.values()):
+        raise AssertionError(f"[server] chunk requests {out}")
+    return {sid: np.asarray(r[1]["motion"], np.float32) for sid, r in out.items()}
+
+
+def server_ticks(server, base: str, engine: ARTAvatarInferEngine, sids: tuple) -> dict:
+    """Phase 25's ticks: session a alone (a warm-up, then a timed chunk), then
+    a and b together twice, from two threads at once. Each pair must ride
+    one pool step, each tick launch 5 AR kernels and 1 encoder kernel, and
+    every row equal the same chunks through a fresh StreamPool of the same
+    capacity to 1e-5."""
+    from artalk_tpu_torch.serving import StreamPool
+
+    sa, sb = sids
+    levels = len(engine.model.patch_nums)
+    rng = np.random.default_rng(40)
+    ticks = [{sa: None}, {sa: None}, {sa: None, sb: None}, {sa: None, sb: None}]
+    for chunks in ticks:
+        for sid in chunks:
+            chunks[sid] = (rng.standard_normal(engine.model.window_samples) * 0.1
+                           ).astype(np.float32)
+    steps, step = [], server.pool.step
+    server.pool.step = lambda chunks: steps.append(sorted(chunks)) or step(chunks)
+    got, ms = {sa: [], sb: []}, []
+    zero_launches()
+    try:
+        for chunks in ticks:
+            t0 = time.perf_counter()
+            for sid, rows in post_chunks(base, chunks).items():
+                got[sid].append(rows)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        del server.pool.step
+    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    if steps != [sorted(chunks) for chunks in ticks]:
+        raise AssertionError(f"[server] pool steps {steps}: concurrent chunks must share one")
+    if launches != {"ar": len(ticks) * levels, "encoder": len(ticks)}:
+        raise AssertionError(f"[server] {len(ticks)} ticks launched {launches}")
+
+    fresh = StreamPool(engine.model, max_sessions=server.pool.capacity)
+    if (fresh.open_session(), fresh.open_session()) != (sa, sb):
+        raise AssertionError("[server] the fresh pool numbers its sessions otherwise")
+    want = {sa: [], sb: []}
+    for chunks in ticks:
+        for sid, rows in fresh.step(chunks).items():
+            want[sid].append(rows)
+    iso_err = max(float(np.abs(g - w).max())
+                  for sid in sids for g, w in zip(got[sid], want[sid]))
+    if iso_err > 1e-5 or [len(got[s]) for s in sids] != [len(want[s]) for s in sids]:
+        raise AssertionError(f"[server] session rows vs a fresh pool: {iso_err:.3g}")
+    return {"ms_chunk_1": ms[1], "ms_chunk_2": (ms[2] + ms[3]) / 2, "steps": steps,
+            "launches": launches, "iso_err": iso_err}
+
+
+def server_codes(server, base: str, sids: tuple) -> dict:
+    """Phase 25's error codes: 413 for a chunk over one window, 404 for an
+    unknown session or route, 409 for a second chunk while the first waits in
+    its tick window, auto-grow to 4 sessions and then 503. Closes every
+    session."""
+    sa, sb = sids
+    chunk = np.zeros(server.pool.window_samples, np.float32).tobytes()
+    over = np.zeros(server.pool.window_samples + 1, np.float32).tobytes()
+    codes = {"413": http(f"{base}/v1/sessions/{sa}/audio", "POST", over)[0],
+             "404 sid": http(f"{base}/v1/sessions/99/audio", "POST", chunk)[0],
+             "404 route": http(f"{base}/nope")[0]}
+    server.batcher.tick_s = 1.0          # hold a's next chunk in its tick window
+    held = {}
+    t = threading.Thread(target=lambda: held.update(
+        r=http(f"{base}/v1/sessions/{sa}/audio", "POST", chunk)))
+    t.start()
+    deadline = time.monotonic() + 60
+    while sa not in server.batcher._pending and time.monotonic() < deadline:
+        time.sleep(0.005)
+    codes["409"] = http(f"{base}/v1/sessions/{sa}/audio", "POST", chunk)[0]
+    t.join(timeout=600)
+    server.batcher.tick_s = SERVER_TICK_MS / 1e3
+    codes["held chunk"] = held["r"][0] if "r" in held else None
+    opened = [http(f"{base}/v1/sessions", "POST", b"{}") for _ in range(3)]
+    codes["opens"] = [code for code, _ in opened]
+    capacity = server.pool.capacity
+    for sid in list(sids) + [body["sid"] for code, body in opened if code == 200]:
+        http(f"{base}/v1/sessions/{sid}", "DELETE")
+    want = {"413": 413, "404 sid": 404, "404 route": 404, "409": 409, "held chunk": 200,
+            "opens": [200, 200, 503]}
+    if codes != want or capacity != 4:
+        raise AssertionError(f"[server] codes {codes} (capacity {capacity}), want {want} "
+                             "(capacity 4)")
+    return codes
+
+
+def server_offline(base: str, engine: ARTAvatarInferEngine, audio: np.ndarray) -> dict:
+    """Phase 25's offline routes on phase 5's 10 s audio: /v1/motion equals
+    engine.inference to 1e-5; /v1/video?shape_id=mesh returns 250 frames at
+    512x512 (the file it names, byte for byte) with at least 250 rasterizer
+    launches during the request."""
+    offline = engine.inference(audio)
+    t0 = time.perf_counter()
+    status, body = http(f"{base}/v1/motion", "POST", audio.tobytes())
+    ms_motion = (time.perf_counter() - t0) * 1e3
+    motion_err = float(np.abs(np.asarray(body["motion"], np.float32) - offline).max())
+    if status != 200 or body["frames"] != 250 or motion_err > 1e-5:
+        raise AssertionError(f"[server] /v1/motion {status}, {body.get('frames')} frames, "
+                             f"max abs err {motion_err:.3g}")
+    zero_launches()
+    t0 = time.perf_counter()
+    status, headers, video = http_raw(f"{base}/v1/video?shape_id=mesh", "POST",
+                                      audio.tobytes())
+    ms_video = (time.perf_counter() - t0) * 1e3
+    raster = rasterizer.LAUNCHES
+    path = headers.get("X-Video-Path", "")
+    with open(path, "rb") as f:
+        same = f.read() == video
+    frames = read_y4m(path)[0].shape if path.endswith(".y4m") else None
+    if (status != 200 or not same or raster < 250
+            or frames not in (None, (250, IMAGE * 3 // 2, IMAGE))):
+        raise AssertionError(f"[server] /v1/video {status}, file equal {same}, frames "
+                             f"{frames}, {raster} rasterizer launches")
+    return {"ms_motion": ms_motion, "motion_err": motion_err, "ms_video": ms_video,
+            "video": f"{headers['X-Video-Format']} {len(video)} bytes, frames {frames}",
+            "raster_launches": raster}
+
+
+def phase_server(engine: ARTAvatarInferEngine, audio: np.ndarray) -> dict:
+    """Phase 25: MotionServer over the int8 engine at full width, through
+    HTTP on this host."""
+    from artalk_tpu_torch.server import MotionServer
+
+    server = MotionServer(engine, capacity=2, max_sessions=4, tick_ms=SERVER_TICK_MS)
+    base = f"http://127.0.0.1:{server.start(port=0)}"
+    try:
+        status, health = http(f"{base}/healthz")
+        if status != 200 or health["device_name"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"[server] /healthz {status} {health}")
+        sids = tuple(http(f"{base}/v1/sessions", "POST", b"{}")[1]["sid"] for _ in range(2))
+        ticks = server_ticks(server, base, engine, sids)
+        codes = server_codes(server, base, sids)
+        offline = server_offline(base, engine, audio)
+    finally:
+        server.close()
+    print(f"[server] {health['device_name']}, int8, capacity 2 (max 4), tick "
+          f"{SERVER_TICK_MS:.0f} ms: chunk request {ticks['ms_chunk_1']:.2f} ms at 1 session, "
+          f"{ticks['ms_chunk_2']:.2f} ms at 2 (host clock, aggregation included); pool steps "
+          f"{ticks['steps']}; launches over 4 ticks {ticks['launches']}; rows vs a fresh pool "
+          f"max abs err {ticks['iso_err']:.3g}; codes {codes}")
+    print(f"[server] /v1/motion (10 s) {offline['ms_motion']:.1f} ms, max abs err vs "
+          f"engine.inference {offline['motion_err']:.3g}; /v1/video?shape_id=mesh "
+          f"{offline['ms_video']:.1f} ms, {offline['video']}, {offline['raster_launches']} "
+          "rasterizer launches")
+    return {**ticks, **offline}
+
+
+def phase_sampled(engine: ARTAvatarInferEngine, audio: np.ndarray, tag: str) -> dict:
+    """Phase 26: sampled decode through ``generate`` and ``_head_bits``."""
+    model, dev = engine.model, engine.device
+    ws, levels = model.window_samples, len(model.patch_nums)
+    n = math.ceil(len(audio) / ws)
+    padded = np.zeros(n * ws, np.float32)
+    padded[: len(audio)] = audio
+    chunks = torch.from_numpy(padded.reshape(n, 1, ws)).to(dev)
+    style = model.encode_style(None)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    greedy = model.generate(chunks, style)
+    zero_launches()
+    top1 = model.generate(chunks, style, sample_generator=gen(0), top_k=1, top_p=0.0)
+    launches = launch_counts()
+    seeded = [model.generate(chunks, style, sample_generator=gen(s)) for s in (0, 0, 1)]
+    fused = model.cfg.fused_ar
+    want = {"ar": levels * n if fused else 0, "encoder": n if fused else 0, "flash": 0}
+    if not torch.equal(top1, greedy) or launches != want:
+        raise AssertionError(f"[sampled {tag}] top_k=1 vs greedy max abs diff "
+                             f"{(top1 - greedy).abs().max().item():.3g}, launches {launches} "
+                             f"(want {want})")
+    if not torch.equal(seeded[0], seeded[1]) or torch.equal(seeded[0], seeded[2]):
+        raise AssertionError(f"[sampled {tag}] seed 0 must repeat and differ from seed 1")
+
+    g = torch.Generator().manual_seed(26)
+    b, pn, d = 2, model.patch_nums[-1], model.embed_dim
+    feats, scale, shift = (torch.randn((b, pn, d), generator=g).to(dev) for _ in range(3))
+    cond = (scale * 0.1, shift * 0.1)
+    logits = model._head_logits(feats, cond)
+    shares = {}
+    for top_p in (0.95, 0.55):
+        keep = torch.isfinite(topk_topp_mask(logits, 2, top_p))
+        bits = model._head_bits(feats, cond, (gen(3), 2, top_p))
+        inside = keep.gather(-1, bits.long()[..., None]).all().item()
+        shares[top_p] = keep.all(dim=-1).float().mean().item()
+        if not inside:
+            raise AssertionError(f"[sampled {tag}] a sampled bit lies outside the mask "
+                                 f"(top_p {top_p})")
+    if not (shares[0.95] > 0 and shares[0.55] < 1):
+        raise AssertionError(f"[sampled {tag}] the mask checks nothing: shares of bits with "
+                             f"a choice {shares}")
+    print(f"[sampled {tag}] top_k=1 generate equals greedy over {n} windows, launches "
+          f"{launches}; seeds repeat and differ; head bits inside the mask, share of bits "
+          f"with a choice at top_p 0.95 {shares[0.95]:.4f}, at 0.55 {shares[0.55]:.4f}")
+    return {"launches": launches, "choice_share": shares}
 
 
 def level_bound(model, pack: dict, level: int, cache_bytes: int):
@@ -1999,7 +2294,9 @@ def main() -> int:
     dev = torch.device("cuda")
     kernel = phase_kernel(flame_data, dev)
     phase_golden(dev)
-    raster_launches, exact_bits, exact_ms, audio, motions = phase_full(dev)
+    raster_launches, exact_bits, exact_ms, audio, motions, full_engine = phase_full(dev)
+    sampled = {"exact": phase_sampled(full_engine, audio, "exact")}
+    del full_engine
     torch.cuda.empty_cache()
 
     modes, engine = {"exact": {"ms_window": exact_ms}}, None
@@ -2008,6 +2305,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         engine, modes[mode] = phase_mode(mode, dev, exact_bits)
     pool = phase_pool(engine)           # the int8 engine, the last mode
+    served = phase_server(engine, audio)
+    sampled["int8"] = phase_sampled(engine, audio, "int8")
     model = engine.model
     ar_packs = {"f32": ar_stack.pack_block_weights(model.blocks, model.num_heads),
                 "bf16": ar_stack.pack_block_weights(model.blocks, model.num_heads,
@@ -2045,7 +2344,10 @@ def main() -> int:
 
     print(f"[summary] {smi}: inference ms/window by mode "
           + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())
-          + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; GAGAvatar ms/frame "
+          + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; HTTP chunk request ms at 1 / 2 "
+          f"sessions {served['ms_chunk_1']:.2f} / {served['ms_chunk_2']:.2f}, /v1/motion "
+          f"{served['ms_motion']:.1f} ms; sampled launches int8 {sampled['int8']['launches']}"
+          "; GAGAvatar ms/frame "
           + ", ".join(f"{m} {splat[c]['ms_frame']:.2f}" for m, c in GAGA_MODES.items())
           + "; flash wav2vec ms/window " + ", ".join(f"{m} {v['ms_window']:.2f}"
                                                      for m, v in flash.items())

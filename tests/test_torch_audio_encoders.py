@@ -272,8 +272,8 @@ def _bits_and_margins(tm, cond, style, prev):
     margins = []
     head_bits = tm._head_bits
 
-    def recorded(feats, head_cond):
-        bits = head_bits(feats, head_cond)
+    def recorded(feats, head_cond, sample=None):
+        bits = head_bits(feats, head_cond, sample)
         scale, shift = head_cond
         logits = tm.head.out(tnn.layer_norm(feats, eps=1e-6) * (scale + 1.0) + shift)
         logits = logits.float().reshape(*bits.shape, 2)

@@ -1,10 +1,12 @@
 """artalk_tpu_torch stays free of jax, the precision switches resolve as in
 the JAX engine, the parts it does not port yet raise instead of being
-ignored, and the kernels' wrappers take no device but the CPU and CUDA."""
+ignored, the kernels' wrappers take no device but the CPU and CUDA, and two
+threads that first launch a kernel together build its library once."""
 
 import os
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
@@ -34,7 +36,9 @@ def test_import_leaves_jax_out():
     """Every module of the port, and chip_smoke.py, import without jax or
     artalk_tpu (whose __init__ imports jax); the GAGAvatar modules, the
     flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers,
-    the evaluation metrics and the native media runtime are among them."""
+    the evaluation metrics, the native media runtime, the HTTP server, the
+    checkpoint converter, the web UI and the metrics registry are among
+    them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -45,7 +49,10 @@ def test_import_leaves_jax_out():
                    "artalk_tpu_torch.ops.attention", "artalk_tpu_torch.models.hubert",
                    "artalk_tpu_torch.models.mimi", "artalk_tpu_torch.ops.sort",
                    "artalk_tpu_torch.models.renderer_extras",
-                   "artalk_tpu_torch.evaluation", "artalk_tpu_torch.runtime.media"} <= imported
+                   "artalk_tpu_torch.evaluation", "artalk_tpu_torch.runtime.media",
+                   "artalk_tpu_torch.server", "artalk_tpu_torch.convert_checkpoint",
+                   "artalk_tpu_torch.app_gradio", "artalk_tpu_torch.utils.convert",
+                   "artalk_tpu_torch.utils.metrics"} <= imported
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -95,11 +102,18 @@ def test_gaga_precision_switches_resolve(monkeypatch, env, want):
 
 
 @pytest.mark.parametrize("flag", ["--run_app"])
-def test_cli_unported_flags_raise(flag):
-    from artalk_tpu_torch.cli import main
+def test_cli_unported_flags_raise(flag, monkeypatch):
+    """``--run_app`` builds the engine and serves the web UI, as the JAX CLI
+    does; without gradio (absent here) it raises the JAX CLI's RuntimeError
+    instead of doing nothing."""
+    from artalk_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["-a", "x.wav", flag])
+    built = []
+    monkeypatch.setattr(cli, "ARTAvatarInferEngine", lambda **kw: built.append(kw))
+    monkeypatch.setitem(sys.modules, "gradio", None)     # import gradio fails
+    with pytest.raises(RuntimeError, match="gradio is not installed"):
+        cli.main([flag])
+    assert len(built) == 1
 
 
 def test_rasterize_other_devices_raise():
@@ -141,3 +155,54 @@ def test_kernel_headers_cover_the_includes(name):
                 todo.append(path)
     assert reached <= set(getattr(mod, "HEADERS", ())), sorted(
         p.name for p in reached - set(getattr(mod, "HEADERS", ())))
+
+
+def test_build_library_builds_once_across_threads(tmp_path, monkeypatch):
+    """Threads that first launch one kernel together run nvcc once (the
+    others wait on the source's lock and load the same library), and nvcc
+    writes to a temporary file of its own thread. nvcc and the loader are
+    stubbed, so this needs no CUDA; the switch interval is shortened so the
+    threads interleave."""
+    from artalk_tpu_torch.ops import _nvcc
+
+    source = tmp_path / "k.cu"
+    source.write_text("// kernel")
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path / "build")
+    runs, outputs = [], set()
+
+    def fake_nvcc(cmd, **kwargs):
+        out = cmd[cmd.index("-o") + 1]
+        runs.append(threading.get_ident())
+        outputs.add(out)
+        with open(out, "w") as f:
+            f.write("lib")
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info: 32 registers")
+
+    monkeypatch.setattr(_nvcc.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(_nvcc.ctypes, "CDLL", lambda path: ("lib", path))
+    n = 4 * (os.cpu_count() or 1)
+    barrier, results, errors = threading.Barrier(n), [], []
+
+    def first_launch():
+        try:
+            barrier.wait(timeout=30)
+            results.append(_nvcc.build_library(source)[0])
+        except Exception as exc:  # noqa: BLE001 — asserted below
+            errors.append(exc)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=first_launch) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert len(runs) == 1 and len(results) == n and len(set(results)) == 1
+    (out,) = outputs
+    assert str(runs[0]) in os.path.basename(out)
+    assert results[0][1].endswith(".so") and os.path.exists(results[0][1])
+    assert _nvcc.library_lock(source) is _nvcc.library_lock(str(source))
