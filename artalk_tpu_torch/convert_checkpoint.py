@@ -9,7 +9,7 @@
     style   assets/style_motion/           assets/style_motion/
 
 Counterpart of ``tools/convert_checkpoint.py``: each kind writes the same
-archive, file for file, on ``utils/convert.py``,
+archive, file for file (the parameter archives stored uncompressed), on ``utils/convert.py``,
 ``utils/params.save_params_npz`` and ``utils/assets.save_flame_npz``. Both
 packages load what it writes. A sparse torch ``J_regressor``, which the JAX
 tool cannot turn into an array, converts as its dense copy does.

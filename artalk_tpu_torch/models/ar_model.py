@@ -34,7 +34,12 @@ Sampling (``topk_topp_mask``, ``sample_with_top_k_top_p`` and the ``sample=``
 argument of the head, the window decode and the window steps) draws from a
 ``torch.Generator`` on the logits' device, one draw per level in order, where
 JAX splits one key per window and per level: the filter is JAX's, the draws
-are not. Not ported yet: the teacher-forced ``forward_logits`` (training).
+are not.
+
+Training (``training/``) uses the teacher-forced ``forward_logits``: all 181
+tokens at once under the explicit VAR mask (``var_attn_bias``), with DropPath
+masks drawn by ``drop_path_masks`` from a ``torch.Generator`` (JAX draws them
+from keys inside the forward; a caller that needs JAX's draws passes them in).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -87,6 +93,17 @@ def sample_with_top_k_top_p(logits: torch.Tensor, generator: torch.Generator,
     return torch.argmax(masked + gumbel, dim=-1)
 
 
+def drop_path_masks(rates: torch.Tensor, batch: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    """DropPath (stochastic depth) keep masks, (depth, 2, batch) float32 in
+    {0, 1}: branch j (attention, MLP) of block i is kept for sample b with
+    probability 1 - rates[i], as ``jax.random.bernoulli`` draws it (a uniform
+    below the keep probability). Drawn from ``generator`` on its device."""
+    u = torch.rand((rates.shape[0], 2, batch), generator=generator,
+                   device=generator.device)
+    return (u < (1.0 - rates.to(u.device))[:, None, None]).float()
+
+
 class WindowState(NamedTuple):
     """Sliding-window carry."""
 
@@ -119,7 +136,8 @@ class _Head(nn.Module):
 
 
 class BitwiseARModel(nn.Module):
-    """Inference-only (parameters do not require grad)."""
+    """The parameters do not require grad when built: serving runs without
+    autograd. The trainer (``training/trainer.py``) turns grads on."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -442,6 +460,69 @@ class BitwiseARModel(nn.Module):
                 tokens = (self.vqfeat_embed(resize_area(f_hat, next_pn))
                           + lvl_pos[:, off + pn : off + pn + next_pn])
         return torch.cat(all_bits, dim=1)
+
+    # ---------------------------------------------------------------- training
+
+    def var_attn_bias(self) -> torch.Tensor:
+        """(1, 1, 181, prev_len + 181) additive bias of the teacher-forced
+        forward: the previous-window prefix all visible, then the
+        level-causal VAR mask (a token sees the tokens of its level and the
+        levels before)."""
+        lvl = np.concatenate([np.full(pn, i) for i, pn in enumerate(self.patch_nums)])
+        mask = np.where(lvl[:, None] >= lvl[None, :], 0.0, -np.inf).astype(np.float32)
+        full = np.concatenate(
+            [np.zeros((self.total_tokens, self.prev_len), np.float32), mask], axis=1)
+        return torch.from_numpy(full)[None, None].to(self.pos_embed.device)
+
+    def drop_path_rates(self) -> torch.Tensor:
+        """Per-block stochastic-depth rates: linspace(0, 0.1 * depth / 24, depth)."""
+        return torch.linspace(0.0, 0.1 * self.depth / 24.0, self.depth,
+                              device=self.pos_embed.device)
+
+    def forward_logits(self, tokens: torch.Tensor, audio_cond: torch.Tensor,
+                       prev_attn_feat: torch.Tensor,
+                       drop_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced forward of all 181 token inputs at once -> bit
+        logits (B, 181, code_dim, 2), differentiable.
+
+        ``drop_masks`` ((depth, 2, B), from ``drop_path_masks``) turns on
+        DropPath: branch j of block i is multiplied per sample by its mask
+        and divided by the keep probability 1 - rates[i]. None (eval) leaves
+        both branches whole."""
+        bias = self.var_attn_bias()
+        prev_feat = prev_attn_feat + self.prev_lvl_pos_embed()
+        x = tokens + self.lvl_pos_embed()
+        b = self.blocks
+        # block-state-independent work hoisted out of the block loop; q stays
+        # separate because it projects hm while k/v project [prev_feat | hm]
+        w_kv = torch.cat([b.k.w, b.v.w], dim=-1)
+        b_kv = torch.cat([torch.zeros_like(b.v.b), b.v.b], dim=-1)
+        scale_mul = torch.exp(torch.clamp(b.scale_mul, max=math.log(100.0)))
+        ada_full, (h_scale, h_shift) = self._fused_decode_consts(audio_cond)
+        keep = None if drop_masks is None else 1.0 - self.drop_path_rates()
+
+        def drop(i: int, j: int, branch: torch.Tensor) -> torch.Tensor:
+            if drop_masks is None:
+                return branch
+            return branch * drop_masks[i, j][:, None, None] / keep[i]
+
+        for i in range(self.depth):
+            g1, g2, s1, s2, sh1, sh2 = ada_full[i].chunk(6, dim=-1)
+            hm = tnn.layer_norm(x, eps=1e-6) * (s1 + 1.0) + sh1
+            q = tnn.l2_normalize(tnn.split_heads(b.q(hm, i), self.num_heads)) * scale_mul[i]
+            kv = torch.matmul(torch.cat([prev_feat, hm], dim=1), w_kv[i]) + b_kv[i]
+            k, v = (tnn.split_heads(t, self.num_heads) for t in kv.chunk(2, dim=-1))
+            attn = tnn.sdpa(q, tnn.l2_normalize(k), v, scale=1.0, bias=bias)
+            x = x + drop(i, 0, b.proj(tnn.merge_heads(attn), i) * g1)
+            hm2 = tnn.layer_norm(x, eps=1e-6) * (s2 + 1.0) + sh2
+            x = x + drop(i, 1, b.fc2(tnn.gelu_tanh(b.fc1(hm2, i)), i) * g2)
+        return self._head_logits(x, (h_scale, h_shift))
+
+    def teacher_inputs(self, bits: torch.Tensor, style_cond: torch.Tensor) -> torch.Tensor:
+        """Teacher-forcing inputs: [style | embedded multi-scale feats of the
+        target bits], (B, 181, d)."""
+        style = style_cond.expand(bits.shape[0], 1, self.embed_dim)
+        return torch.cat([style, self.vqfeat_embed(self.vae.bits_to_ms_feat(bits))], dim=1)
 
     # ------------------------------------------------------------ sliding window
 

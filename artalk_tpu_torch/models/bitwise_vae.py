@@ -1,10 +1,14 @@
 """BITWISE_VAE: transformer motion tokenizer with multi-scale BSQ codes.
 
-Counterpart of ``artalk_tpu/models/bitwise_vae.py`` (inference only). It works
-on the two-window layout ``[prev_window, this_window]`` with a block mask: the
+Counterpart of ``artalk_tpu/models/bitwise_vae.py``. It works on the
+two-window layout ``[prev_window, this_window]`` with a block mask: the
 previous window attends only to itself, the current window to both. The
 reference's tower quirks are kept: the attention scale is hidden_dim**-0.5
 (not head_dim), and the FFN residual has no pre-norm.
+
+``motion_mean`` and ``motion_std`` are parameters, as they are leaves of the
+JAX parameter tree: stage-1 training (``reconstruct``) updates and decays
+them as it does every other leaf.
 """
 
 from __future__ import annotations
@@ -84,8 +88,8 @@ class BitwiseVAE(nn.Module):
             mean, std = torch.from_numpy(ALLTALKEMICA_MEAN), torch.from_numpy(ALLTALKEMICA_STD)
         else:  # non-standard motion dim (tests / custom datasets): identity stats
             mean, std = torch.zeros(cfg.motion_dim), torch.ones(cfg.motion_dim)
-        self.register_buffer("motion_mean", mean.clone())
-        self.register_buffer("motion_std", std.clone())
+        self.motion_mean = nn.Parameter(mean.clone())
+        self.motion_std = nn.Parameter(std.clone())
 
     def init(self, gen: torch.Generator) -> "BitwiseVAE":
         cfg = self.cfg
@@ -147,3 +151,18 @@ class BitwiseVAE(nn.Module):
 
     def bits_to_ms_feat(self, bits: torch.Tensor) -> torch.Tensor:
         return self.quantizer.bits_to_ms_feat(bits)
+
+    def reconstruct(self, prev_motion: torch.Tensor, this_motion: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The differentiable autoencode pass of stage-1 training: returns
+        (recon_prev, recon_this, aux_losses (2, num_levels)), the per-window
+        BSQ entropy + commit terms stacked."""
+        w = self.window
+        bias = self.two_window_bias()
+        enc_out = self._encode_feat(torch.cat([prev_motion, this_motion], dim=1), bias, 2 * w)
+        q_prev, _, loss_prev = self.quantizer.encode_with_losses(enc_out[:, :w])
+        q_this, _, loss_this = self.quantizer.encode_with_losses(enc_out[:, w:])
+        dec = self.decoder
+        h = tnn.leaky_relu(dec.inp(torch.cat([q_prev, q_this], dim=1) + self.dec_pos_embed), 0.2)
+        motion = self.unnorm(dec.out(dec.layers(h, bias)))
+        return motion[:, :w], motion[:, w:], torch.stack([loss_prev, loss_this])

@@ -4,6 +4,10 @@ Counterpart of ``artalk_tpu/models/style_encoder.py``: a post-LN transformer
 encoder over projected motion, mean-pooled. The reference's positional
 encoding quirk is kept for checkpoint parity: the sinusoidal encoding of a
 single position (index = sequence length) is added to every frame.
+
+``pe``, ``motion_mean`` and ``motion_std`` are parameters, as they are leaves
+of the JAX parameter tree: stage-2 training with style clips updates and
+decays them as it does every other leaf.
 """
 
 from __future__ import annotations
@@ -36,14 +40,13 @@ class StyleEncoder(nn.Module):
         self.num_heads, self.num_layers = num_heads, num_layers
         self.proj = tnn.Linear(motion_dim, feature_dim)
         self.layers = _Layers(feature_dim, ffn_dim, num_layers)
-        self.register_buffer(
-            "pe", torch.from_numpy(tnn.sinusoidal_pe(max_len, feature_dim))[None])
+        self.pe = nn.Parameter(torch.from_numpy(tnn.sinusoidal_pe(max_len, feature_dim))[None])
         if motion_dim == ALLTALKEMICA_MEAN.shape[0]:
             mean, std = torch.from_numpy(ALLTALKEMICA_MEAN), torch.from_numpy(ALLTALKEMICA_STD)
         else:  # non-standard motion dim (tests / custom datasets): identity stats
             mean, std = torch.zeros(motion_dim), torch.ones(motion_dim)
-        self.register_buffer("motion_mean", mean.clone())
-        self.register_buffer("motion_std", std.clone())
+        self.motion_mean = nn.Parameter(mean.clone())
+        self.motion_std = nn.Parameter(std.clone())
 
     def init(self, gen: torch.Generator) -> "StyleEncoder":
         d = self.feature_dim

@@ -10,7 +10,8 @@ key by replacing ``//`` with ``.`` and nothing else changes.
 
 ``flatten_params`` / ``save_params_npz`` write such an archive from a nested
 tree of dicts and lists (``utils/convert.py``'s output) with the keys of the
-JAX ``save_params``, without jax.
+JAX ``save_params``, without jax; ``flat_from_module`` gives a module's
+parameters in that form (the trainer's and the exporter's archives).
 """
 
 from __future__ import annotations
@@ -51,10 +52,19 @@ def flatten_params(tree: Any) -> Dict[str, np.ndarray]:
 
 
 def save_params_npz(tree: Any, path: str) -> None:
-    """Save a nested parameter tree as a flat-key compressed .npz, the
-    archive the JAX ``save_params`` writes."""
+    """Save a nested parameter tree as a flat-key .npz with the keys of the
+    JAX ``save_params``. The archive is stored uncompressed (JAX deflates
+    its own; both load either): float32 weights barely deflate, and
+    deflating the production model's 2 GB takes minutes."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez_compressed(path, **flatten_params(tree))
+    np.savez(path, **flatten_params(tree))
+
+
+def flat_from_module(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A port module's parameters as flat ``//``-keyed float arrays on the
+    host: the inverse of ``load_flat_into``, the keys of the JAX tree."""
+    return {k.replace(".", SEP): v.detach().cpu().numpy()
+            for k, v in module.state_dict().items()}
 
 
 def load_params_npz(path: str) -> Dict[str, np.ndarray]:

@@ -5,7 +5,8 @@ speech -> mesh-video path at the production width in every precision mode,
 StreamPool, the HTTP server, sampled decode, the speech -> gaussian-splat
 avatar (GAGAvatar) path, the alternate audio encoders (flash-attention
 wav2vec2, HuBERT, Mimi), the instance-key sort of the splat prepass, the
-debug point and texture renderers, and the motion metrics.
+debug point and texture renderers, the motion metrics, both training
+stages (and the train CLI) and the window-step export.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
@@ -189,6 +190,43 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      its motions, seeds 0 and 1 differ; every bit that _head_bits samples on
      seeded features lies inside topk_topp_mask of the same logits; in int8,
      5 AR launches and 1 encoder launch a window.
+ 27. stage-1 training (training/trainer.make_vae_train_step) of the
+     production VAE on a batch of 8 from train.py --synthetic's clips: a
+     warm-up step (the schedule's step 0, at learning rate 0) under torch's
+     FLOP counter, then TRAIN_STEPS steps at TRAIN_LR timed one by one by
+     CUDA events: losses finite and the last below the first; ms per step,
+     peak memory (max_memory_allocated) and the step's bound (the larger of
+     the counted matmul / convolution / attention operations, forward and
+     backward, at 67 TFLOP/s fp32, as TF32 is off, and AdamW's 7 x 4 B a
+     parameter at 3.35 TB/s); no kernel launch;
+ 28. stage-2 training of the production ModelConfig() (489.5 M parameters)
+     likewise, with style clips and DropPath; the exact path launches no
+     kernel;
+ 29. one AR step at batch 1, DropPath off, on the card and with the same
+     weights and batch on the CPU: loss and grad_norm within TRAIN_CPU_RTOL
+     (and the count of target and prefix code bits that differ); the same
+     card step with TF32 let on (the control) must fall outside them;
+ 30. the encoder-stack kernel on the training path: an AR step at batch 1
+     with fused_ar (float32 pack) and one at batch 8 with bf16_audio +
+     fused_ar each launch it once (the kernels line's train_launches). The
+     launch's own output is held against encoder_block_stack_plain of the
+     launch's own input and pack within ENCODER_TOL (atol + rtol |want|),
+     and the fused condition against the unfused one of the same precision
+     (bf16_audio kept) on the same audio within ENCODER_TOL likewise; the
+     float32 step's loss is within FUSED_LOSS_MARGIN times the first-order
+     bound of ENCODER_TOL["f32"] (|d loss / d condition| times the
+     area-resized atol + rtol |features|) of the exact step's, the bf16
+     step's loss finite;
+ 31. python -m artalk_tpu_torch.training.train --stage ar --synthetic
+     --steps 2 --eval on the card (train.main): no kernel launch, the
+     evaluation of clip 0 finite over 500 frames; the saved npz loads into
+     ARTAvatarInferEngine(params=...), whose inference of phase 5's audio is
+     (250, 106) and finite;
+ 32. python -m artalk_tpu_torch.export_model --checkpoint <phase 31's npz>
+     --device cuda (export_model.main, the production ModelConfig()): the
+     saved program, reloaded, runs two windows of phase 5's audio with the
+     carry threaded through and equals bit for bit the eager window step of
+     the model built from the params.npz written beside it.
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -197,6 +235,7 @@ kernels' numbers; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -210,6 +249,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from artalk_tpu_torch import config as tcfg
 from artalk_tpu_torch import evaluation
@@ -218,8 +258,13 @@ from artalk_tpu_torch.models.flame import FlameModel
 from artalk_tpu_torch.models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS
 from artalk_tpu_torch.models.gagavatar.generators import transform_emoca_to_p3d
 from artalk_tpu_torch.models import mimi as tmimi
-from artalk_tpu_torch.models.ar_model import topk_topp_mask
+from artalk_tpu_torch.models import nn as tnn
+from artalk_tpu_torch.models import wav2vec as wav2vec_mod
+from artalk_tpu_torch import export_model
+from artalk_tpu_torch.models.ar_model import BitwiseARModel, topk_topp_mask
+from artalk_tpu_torch.models.bitwise_vae import BitwiseVAE
 from artalk_tpu_torch.models.hubert import HubertEncoder
+from artalk_tpu_torch.models.nn import no_tf32
 from artalk_tpu_torch.models.renderer import MeshRenderer
 from artalk_tpu_torch.models.renderer_extras import PointRenderer, TextureRenderer
 from artalk_tpu_torch.ops import ar_block_stack as ar_stack
@@ -228,6 +273,9 @@ from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
 from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.ops import sort
+from artalk_tpu_torch.ops.resample1d import resize_area
+from artalk_tpu_torch.training import losses as train_losses
+from artalk_tpu_torch.training import train, trainer
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 from artalk_tpu_torch.utils.metrics import GLOBAL_METRICS, device_trace
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
@@ -344,6 +392,27 @@ SERVER_TICK_MS = 20.0
 # phase 5's registry check: the JAX engine's names (artalk_tpu/engine.py)
 REGISTRY_STAGES = ("inference.generate", "inference.postprocess", "stream.window_step",
                    "render.flame_verts", "render.rasterize")
+
+# phases 27-32, the training slice: batch and timed steps of each stage, and
+# the learning rate after the warm-up step (the schedule's step 0, at lr 0).
+# Without the warm-up of train.py's schedule Adam's first updates move every
+# weight by about the learning rate: at the production width the AR loss
+# rose at 1e-3 and 1e-4 (0.750 -> 1.85, -> 1.11) and at 3e-5 fell only
+# after two steps; at 1e-5 both stages fall from the first step (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md, section 6)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 4
+TRAIN_LR = 1e-5
+# phase 29: an AR step at batch 1 on the card against the same step on the
+# CPU, both float32 with TF32 off: relative difference of loss and grad_norm.
+# Sound runs read 8.8e-8 - 1.6e-7 (loss) and 7.7e-8 - 9.0e-8 (grad_norm);
+# the control, the card step with TF32 on, 1.7e-4 and 1.4e-4 (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md, section 6). A target bit that flips between the
+# two would move the mean NLL by about 1e-4 of itself.
+TRAIN_CPU_RTOL = {"loss": 1e-6, "grad_norm": 1e-5}
+# phase 30: the fused float32 encoder's loss against the exact step's within
+# this multiple of the first-order bound from ENCODER_TOL["f32"]
+FUSED_LOSS_MARGIN = 2.0
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -2283,6 +2352,319 @@ def phase_tf32_probe() -> dict:
     return got
 
 
+def train_batch(ds, batch: int, seed: int, dev: torch.device) -> dict:
+    """The first batch of ``ds`` for ``seed``, as tensors on ``dev``."""
+    b = next(ds.batches(batch, seed=seed, num_batches=1))
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def ar_args(b: dict) -> tuple:
+    return b["audio"], b["prev_motion"], b["this_motion"], b["style_motion"]
+
+
+def run_train_steps(step, state, args: tuple, tag: str, n_params: int, dev: torch.device,
+                    eval_loss):
+    """One warm-up step under torch's FLOP counter (the schedule's step 0,
+    at learning rate 0), then TRAIN_STEPS steps timed one by one by CUDA
+    events. The steps' losses must be finite, and ``eval_loss()`` (the loss
+    of the same batch without DropPath or update) after the steps below its
+    value before them. Returns the state and the stage's numbers: ms per
+    step, peak memory and
+    the step's bound (the larger of the FLOP counter's matmul, convolution
+    and attention operations, forward and backward, over the fp32 rate, as
+    the steps run with TF32 off, and AdamW's bytes, 7 x 4 B per parameter:
+    parameter, gradient and both moments read, parameter and moments
+    written, over the HBM rate)."""
+    before = eval_loss()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        state, first = step(state, *args)
+    losses = [float(first["loss"])]
+    events = []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, *args)
+        end.record()
+        events.append((start, end, metrics))
+    torch.cuda.synchronize(dev)
+    ms = [s.elapsed_time(e) for s, e, _ in events]
+    losses += [float(m["loss"]) for _, _, m in events]
+    norms = [float(m["grad_norm"]) for _, _, m in events]
+    peak = torch.cuda.max_memory_allocated(dev)
+    after = eval_loss()
+    flop = counter.get_total_flops()
+    ops_ms = flop / FP32_FLOP_PER_S * 1e3
+    bytes_ms = 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    stage = {"ms_step": sum(ms) / len(ms), "peak_gib": peak / 2**30,
+             "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print(f"[train {tag}] {n_params / 1e6:.1f} M params, batch {args[0].shape[0]}: losses "
+          f"{[round(x, 5) for x in losses]} (warm-up at lr 0, then {TRAIN_STEPS} steps at lr "
+          f"{TRAIN_LR}), grad norms {[round(x, 4) for x in norms]}, loss without DropPath "
+          f"before {before:.5f} and after {after:.5f}; ms per step "
+          f"{[round(x, 3) for x in ms]} (mean {stage['ms_step']:.3f}); peak memory "
+          f"{stage['peak_gib']:.2f} GiB; bound {stage['bound_ms']:.3f} ms ({stage['bound_by']}: "
+          f"{flop / 1e12:.3f} TFLOP at 67 TFLOP/s = {ops_ms:.3f} ms, AdamW "
+          f"{28 * n_params / 1e9:.2f} GB at 3.35 TB/s = {bytes_ms:.3f} ms), share of the bound "
+          f"{stage['bound_ms'] / stage['ms_step']:.3f}")
+    if not all(math.isfinite(x) for x in losses + norms) or not after < before:
+        raise AssertionError(f"[train {tag}] losses {losses}, {before} -> {after}: not "
+                             "finite or not falling")
+    return state, stage
+
+
+def phase_train_vae(dev: torch.device) -> dict:
+    """Stage 1 at the production width on train.py --synthetic's data."""
+    cfg = tcfg.ModelConfig()
+    b = train_batch(train.synthetic_dataset(cfg), TRAIN_BATCH, 0, dev)
+    vae = BitwiseVAE(cfg.vae).init(torch.Generator().manual_seed(0)).to(dev)
+    opt = trainer.make_optimizer(lr=TRAIN_LR, warmup_steps=1)
+    step = trainer.make_vae_train_step(vae, opt)
+    n_params = sum(p.numel() for p in vae.parameters())
+    args = (b["prev_motion"], b["this_motion"])
+
+    def eval_loss():
+        with torch.no_grad(), no_tf32():
+            return float(train_losses.vae_loss(vae, *args)[0])
+
+    zero_launches()
+    _, stage = run_train_steps(step, trainer.init_state(vae, opt), args, "vae", n_params, dev,
+                               eval_loss)
+    if any(launch_counts().values()):
+        raise AssertionError(f"[train vae] launched {launch_counts()}")
+    return stage
+
+
+def phase_train_ar(dev: torch.device):
+    """Stage 2 at the production width, with style clips and DropPath, on
+    train.py --synthetic's data; the exact path launches no kernel. Returns
+    the model and the stage's numbers."""
+    cfg = tcfg.ModelConfig()
+    b = train_batch(train.synthetic_dataset(cfg), TRAIN_BATCH, 0, dev)
+    model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0)).to(dev)
+    opt = trainer.make_optimizer(lr=TRAIN_LR, warmup_steps=1)
+    step = trainer.make_ar_train_step(model, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    def eval_loss():
+        with torch.no_grad(), no_tf32():
+            return float(train_losses.ar_loss(model, *ar_args(b))[0])
+
+    zero_launches()
+    state, stage = run_train_steps(step, trainer.init_state(model, opt), ar_args(b), "ar",
+                                   n_params, dev, eval_loss)
+    if any(launch_counts().values()):
+        raise AssertionError(f"[train ar] launched {launch_counts()}")
+    del state
+    return model, stage
+
+
+def one_ar_step(model, b: dict, dev: torch.device) -> dict:
+    """One AR step of a fresh state (the schedule's step 0: learning rate 0,
+    so the weights stay as they are), DropPath off, on ``dev``."""
+    opt = trainer.make_optimizer(lr=TRAIN_LR, warmup_steps=1)
+    step = trainer.make_ar_train_step(model, opt, drop_path=False)
+    _, metrics = step(trainer.init_state(model, opt), *(x.to(dev) for x in ar_args(b)))
+    return {k: float(v) for k, v in metrics.items()}
+
+
+class tf32_on(no_tf32):
+    """Phase 29's control: TF32 on where the step asks for it off."""
+
+    def __enter__(self):
+        super().__enter__()
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+
+
+@contextlib.contextmanager
+def replaced(module, name: str, value):
+    """``module.name`` set to ``value`` for the block."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def phase_train_cpu(model, dev: torch.device) -> None:
+    """One AR step at batch 1 on the card and the same weights and batch on
+    the CPU: loss and grad_norm within TRAIN_CPU_RTOL; the card step with
+    TF32 let on (the control) outside them."""
+    b = train_batch(train.synthetic_dataset(model.cfg), 1, 1, dev)
+    card = one_ar_step(model, b, dev)
+    with replaced(tnn, "no_tf32", tf32_on):
+        control = one_ar_step(model, b, dev)
+    cpu_model = BitwiseARModel(model.cfg)
+    cpu_model.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    cpu = one_ar_step(cpu_model, {k: v.cpu() for k, v in b.items()}, torch.device("cpu"))
+    with torch.no_grad():
+        bits = [m.vae.encode_to_bits(b["prev_motion"].to(d), b["this_motion"].to(d))
+                for m, d in ((model, dev), (cpu_model, "cpu"))]
+    flipped = sum(int((x.cpu() != y).sum()) for x, y in zip(bits[0], bits[1]))
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in TRAIN_CPU_RTOL}
+    rel_control = {k: abs(control[k] - cpu[k]) / abs(cpu[k]) for k in TRAIN_CPU_RTOL}
+    print(f"[train cpu] AR step at batch 1, DropPath off: card {card}, CPU {cpu}; relative "
+          f"differences {rel} (limits {TRAIN_CPU_RTOL}); {flipped} of "
+          f"{sum(x.numel() for x in bits[1])} target and prefix code bits differ; control "
+          f"with TF32 on: {control}, relative differences {rel_control}")
+    if any(rel[k] > tol for k, tol in TRAIN_CPU_RTOL.items()):
+        raise AssertionError(f"[train cpu] card vs CPU {rel}")
+    if not all(rel_control[k] > tol for k, tol in TRAIN_CPU_RTOL.items()):
+        raise AssertionError(f"[train cpu] the TF32 control {rel_control} passes the limits")
+
+
+def tol_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """The largest |got - want| / (tol + tol |want|): at most 1 within
+    atol = rtol = ``tol``."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def phase_train_kernel(model, dev: torch.device) -> dict:
+    """The encoder-stack kernel on the training path: one AR step at batch 1
+    with fused_ar (float32 pack) and one at batch 8 with bf16_audio +
+    fused_ar, each launching it once, counted. The launch's output is held
+    against the plain stack on the launch's own input and pack, and the
+    fused condition against the unfused one of the same precision on the
+    same audio, both within ENCODER_TOL; the float32 step's loss against the
+    exact step's within the first-order bound of ENCODER_TOL['f32'] (sum
+    over the condition of |d loss / d cond| times the area-resized atol +
+    rtol |features|, times FUSED_LOSS_MARGIN), the bf16 step's loss finite.
+    Returns per pack the launches and the two max abs errors."""
+    cfg = model.cfg
+    ds = train.synthetic_dataset(cfg)
+    b1, b8 = train_batch(ds, 1, 2, dev), train_batch(ds, TRAIN_BATCH, 3, dev)
+    exact = one_ar_step(model, b1, dev)
+    with torch.no_grad(), no_tf32():
+        feat = model.audio_encoder(b1["audio"])
+        cond = torch.cat([resize_area(feat, pn) for pn in model.patch_nums], dim=1)
+        err = ENCODER_TOL["f32"] * torch.cat(
+            [resize_area(1.0 + feat.abs(), pn) for pn in model.patch_nums], dim=1)
+    leaf = cond.clone().requires_grad_(True)
+    model.audio_condition = lambda _audio: leaf
+    try:
+        with no_tf32():
+            loss, _ = train_losses.ar_loss(model, *ar_args(b1))
+            (grad,) = torch.autograd.grad(loss, leaf)
+    finally:
+        del model.audio_condition
+    bound = FUSED_LOSS_MARGIN * float((grad.abs() * err).sum())
+    out = {}
+    for tag, change, b in (("f32", {"fused_ar": True}, b1),
+                           ("bf16", {"fused_ar": True, "bf16_audio": True}, b8)):
+        calls = []
+
+        def record(x, pack, **kw):
+            y = enc_stack.encoder_block_stack(x, pack, **kw)
+            calls.append((x, pack, kw, y))
+            return y
+
+        tol = ENCODER_TOL[tag]
+        model.cfg = dataclasses.replace(cfg, **change)
+        try:
+            zero_launches()
+            with replaced(wav2vec_mod, "encoder_block_stack", record):
+                got = one_ar_step(model, b, dev)
+            launches = launch_counts()
+            with torch.no_grad(), no_tf32():
+                fused = model.audio_condition(b["audio"])
+                model.cfg = dataclasses.replace(cfg, **{**change, "fused_ar": False})
+                unfused = model.audio_condition(b["audio"])
+        finally:
+            model.cfg = cfg
+        if len(calls) != 1:
+            raise AssertionError(f"[train kernel] {tag}: {len(calls)} encoder-stack calls")
+        x, pack, kw, y = calls[0]
+        with torch.no_grad():
+            want = enc_stack.encoder_block_stack_plain(x, pack, **kw)
+        stack_err = float((y - want).abs().max())
+        stack_ratio = tol_ratio(y, want, tol)
+        cond_err = float((fused - unfused).abs().max())
+        cond_ratio = tol_ratio(fused, unfused, tol)
+        out[tag] = {"train_launches": launches["encoder"], "train_max_abs_err": stack_err,
+                    "train_condition_max_abs_err": cond_err}
+        print(f"[train kernel] {tag} pack, batch {b['audio'].shape[0]}: the launch on "
+              f"{tuple(x.shape)} against the plain stack max abs err {stack_err:.3g} "
+              f"({stack_ratio:.3f} of atol = rtol {tol}); the fused condition against the "
+              f"unfused one {cond_err:.3g} ({cond_ratio:.3f} of it); loss {got['loss']:.7f}"
+              + (f" vs exact {exact['loss']:.7f} (|diff| {abs(got['loss'] - exact['loss']):.3g}"
+                 f", bound {bound:.3g})" if tag == "f32" else "")
+              + f"; launches {launches}")
+        if launches != {"ar": 0, "encoder": 1, "flash": 0} or not math.isfinite(got["loss"]):
+            raise AssertionError(f"[train kernel] {tag}: launches {launches}, loss {got['loss']}")
+        if stack_ratio > 1.0 or cond_ratio > 1.0:
+            raise AssertionError(f"[train kernel] {tag}: the kernel on the training path off "
+                                 f"its plain version ({stack_ratio:.3f}, {cond_ratio:.3f} of "
+                                 "ENCODER_TOL)")
+        if tag == "f32" and abs(got["loss"] - exact["loss"]) > bound:
+            raise AssertionError(f"[train kernel] fused loss off the exact step's by "
+                                 f"{abs(got['loss'] - exact['loss']):.3g} > {bound:.3g}")
+    return out
+
+
+def phase_train_cli(dev: torch.device, audio: np.ndarray) -> str:
+    """train.main as a user runs it (AR stage, synthetic clips, 2 steps,
+    --eval) on the card; the saved npz loads into the port's engine, whose
+    inference of phase 5's audio is finite. Returns the npz's path."""
+    out = os.path.join(ROOT, "render_results", "chip_smoke", "train", "trained.npz")
+    zero_launches()
+    t0 = time.perf_counter()
+    metrics = train.main(["--stage", "ar", "--synthetic", "--steps", "2", "--out", out,
+                          "--eval", "--device", "cuda", "--log_every", "1"])
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    if any(launches.values()) or metrics["frames"] != 500 or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"[train cli] launches {launches}, eval {metrics}")
+    engine = build_engine(dev, {}, tcfg.ModelConfig(), params=load_params_npz(out))
+    motions = engine.inference(audio)
+    print(f"[train cli] train.main (2 steps, --eval) {seconds:.1f} s, eval {metrics}; its npz "
+          f"in the engine: inference {motions.shape}, finite {bool(np.isfinite(motions).all())}")
+    if motions.shape != (250, 106) or not np.isfinite(motions).all():
+        raise AssertionError("[train cli] the trained engine's inference")
+    return out
+
+
+def phase_export(dev: torch.device, audio: np.ndarray, checkpoint: str) -> None:
+    """export_model.main on phase 31's checkpoint at the production
+    ModelConfig(): the saved and reloaded program equals, bit for bit over
+    2 windows of phase 5's audio with the carry threaded through, the eager
+    window step of the model built from the params.npz written beside it."""
+    out_dir = os.path.join(ROOT, "render_results", "chip_smoke", "export")
+    t0 = time.perf_counter()
+    path = export_model.main(["--out", out_dir, "--checkpoint", checkpoint,
+                              "--device", "cuda"])
+    t1 = time.perf_counter()
+    step = export_model.load_window_step(path)
+    t2 = time.perf_counter()
+    params = os.path.join(out_dir, "params.npz")
+    model = params_from_flat(load_params_npz(params), tcfg.ModelConfig()).to(dev)
+    sizes = [os.path.getsize(f) for f in (path, params)]
+    for f in (path, params, checkpoint):
+        os.remove(f)
+    ws = model.window_samples
+    equal = []
+    with torch.no_grad(), no_tf32():
+        style = model.encode_style(None)
+        want = got = model.initial_state(style)
+        for k in range(2):
+            chunk = torch.from_numpy(audio[None, k * ws:(k + 1) * ws]).to(dev)
+            want, want_motion = model.window_step(want, chunk, style)
+            got, got_motion = step(got, chunk, style)
+            equal.append(torch.equal(got.prev_bits, want.prev_bits)
+                         and torch.equal(got.prev_attn_feat, want.prev_attn_feat)
+                         and torch.equal(got_motion, want_motion))
+    print(f"[export] export_model.main at batch 1, ModelConfig() "
+          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params) on the trained "
+          f"npz: {t1 - t0:.1f} s (trace, save {sizes[0] / 1e9:.2f} GB and params.npz "
+          f"{sizes[1] / 1e9:.2f} GB), load {t2 - t1:.1f} s; reloaded equals the eager step of "
+          f"params.npz bit for bit per window: {equal}")
+    if not all(equal):
+        raise AssertionError("[export] the reloaded window step differs from the eager one")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2342,6 +2724,21 @@ def main() -> int:
     sort_times = phase_sort_times(dev, scene_keys["avatar scene"])
     phase_tf32_probe()
 
+    torch.cuda.empty_cache()
+    train_stages = {"vae": phase_train_vae(dev)}
+    ar_model, train_stages["ar"] = phase_train_ar(dev)
+    phase_train_cpu(ar_model, dev)
+    train_launches = phase_train_kernel(ar_model, dev)
+    del ar_model
+    torch.cuda.empty_cache()
+    checkpoint = phase_train_cli(dev, audio)
+    torch.cuda.empty_cache()
+    phase_export(dev, audio, checkpoint)
+    print(f"[train summary] {smi}: " + "; ".join(
+        f"{tag} {v['ms_step']:.3f} ms/step at batch {TRAIN_BATCH}, peak "
+        f"{v['peak_gib']:.2f} GiB, bound {v['bound_ms']:.3f} ms ({v['bound_by']})"
+        for tag, v in train_stages.items()))
+
     print(f"[summary] {smi}: inference ms/window by mode "
           + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())
           + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; HTTP chunk request ms at 1 / 2 "
@@ -2371,6 +2768,9 @@ def main() -> int:
                         "source": "artalk_tpu_torch/csrc/encoder_block_stack.cu",
                         "replaces": "artalk_tpu/ops/encoder_block_stack.py:339",
                         "launches": modes[mode]["launches"]["encoder"],
+                        **train_launches.get(name, {
+                            "train_launches": 0, "train_max_abs_err": None,
+                            "train_condition_max_abs_err": None}),
                         "max_abs_err": enc_err[name], **times[f"encoder/{name}"]})
     for colors in ("f32", "bf16"):
         kernels.append({"name": f"gsplat/{colors}", "route": "cuda",

@@ -37,8 +37,8 @@ def test_import_leaves_jax_out():
     artalk_tpu (whose __init__ imports jax); the GAGAvatar modules, the
     flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers,
     the evaluation metrics, the native media runtime, the HTTP server, the
-    checkpoint converter, the web UI and the metrics registry are among
-    them."""
+    checkpoint converter, the web UI, the metrics registry, the training
+    package and the window-step export are among them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -52,7 +52,29 @@ def test_import_leaves_jax_out():
                    "artalk_tpu_torch.evaluation", "artalk_tpu_torch.runtime.media",
                    "artalk_tpu_torch.server", "artalk_tpu_torch.convert_checkpoint",
                    "artalk_tpu_torch.app_gradio", "artalk_tpu_torch.utils.convert",
-                   "artalk_tpu_torch.utils.metrics"} <= imported
+                   "artalk_tpu_torch.utils.metrics", "artalk_tpu_torch.training.train",
+                   "artalk_tpu_torch.training.trainer", "artalk_tpu_torch.training.data",
+                   "artalk_tpu_torch.export_model"} <= imported
+
+
+_IMPORT_BLOCKED = """
+import sys
+for name in ("jax", "jaxlib", "artalk_tpu"):
+    sys.modules[name] = None          # any import of them raises ImportError
+import artalk_tpu_torch.training
+from artalk_tpu_torch.training import data, losses, train, trainer
+from artalk_tpu_torch import export_model
+print(sorted(artalk_tpu_torch.training.__all__))
+"""
+
+
+def test_training_and_export_import_with_jax_blocked():
+    """The training package and the export entry point import in a process
+    where importing jax, jaxlib or artalk_tpu fails."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_BLOCKED], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "make_ar_train_step" in proc.stdout
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

@@ -18,8 +18,8 @@ from artalk_tpu.utils.checkpoint import _flatten
 
 from artalk_tpu_torch import config as tcfg
 from artalk_tpu_torch.models.ar_model import BitwiseARModel
-from artalk_tpu_torch.utils.params import (SEP, load_flat_into, load_params_npz,
-                                           params_from_flat)
+from artalk_tpu_torch.utils.params import flat_from_module as flat_from_model
+from artalk_tpu_torch.utils.params import load_flat_into, load_params_npz, params_from_flat
 
 from test_ar_model import CFG
 
@@ -65,11 +65,6 @@ def port_model(cfg, seed=0):
 def with_jax_params(module, jax_params):
     """``module`` (a port module) holding a JAX module's parameter tree."""
     return load_flat_into(module, _flatten(jax_params)).requires_grad_(False)
-
-
-def flat_from_model(model):
-    """A port module's state as flat ``//``-keyed numpy arrays."""
-    return {k.replace(".", SEP): v.numpy() for k, v in model.state_dict().items()}
 
 
 def to_np(t):
