@@ -25,8 +25,11 @@ server (``python -m artalk_tpu_torch.server``), the jax-free checkpoint
 converter (``python -m artalk_tpu_torch.convert_checkpoint``), top-k/top-p
 sampled decode, the web UI (``app_gradio``; ``cli --run_app``), the
 metrics registry (``utils/metrics``), training of both model stages
-(``training``; ``python -m artalk_tpu_torch.training.train``) and the
-``torch.export`` of the window step (``export_model``). Six hand-written CUDA kernels
+(``training``; ``python -m artalk_tpu_torch.training.train``), the
+``torch.export`` of the window step (``export_model``) and multi-device
+scaling on ``torch.distributed`` (``parallel``: the (dp, tp) device mesh,
+the tensor-parallel sharding rules as DTensor placements, frame-parallel
+rendering, multi-process jobs). Six hand-written CUDA kernels
 carry them: the z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block
 stack (``csrc/ar_block_stack.cu``), the wav2vec2 encoder stack
 (``csrc/encoder_block_stack.cu``), the 32-channel gaussian splat

@@ -4,11 +4,13 @@ Counterpart of ``tools/export_model.py``: ``torch.export`` traces
 ``BitwiseARModel.window_step`` (4 s audio chunk -> 100 motion frames + the
 new carry) once at a fixed batch, and the saved program runs in a serving
 process that ships no model source, only ``torch.export.load`` and the
-program's file, which holds the weights (``params.npz`` beside it holds them
-too, in the flat ``//`` form of the JAX package). The ``WindowState`` carry is
-an input and an output, as its two tensors (``prev_bits``,
-``prev_attn_feat``): ``load_window_step`` wraps them back into a
-``WindowState``.
+program's file. The program carries the weights it was traced with;
+``load_window_step(path, params)`` runs it with any other checkpoint of the
+same shapes instead (a flat ``//`` dict or an .npz, such as the
+``params.npz`` written beside it), as the JAX artifact takes its parameters
+at call time. The ``WindowState`` carry is an input and an output, as its
+two tensors (``prev_bits``, ``prev_attn_feat``): ``load_window_step`` wraps
+them back into a ``WindowState``.
 
     python -m artalk_tpu_torch.export_model --out exported/ [--batch 8] \\
         [--checkpoint assets/artalk_params.npz] [--device cuda]
@@ -23,8 +25,9 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Callable, Tuple, Union
+from typing import Callable, Dict, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,7 +35,8 @@ from .config import ModelConfig
 from .engine import resolve_device
 from .models import nn as tnn
 from .models.ar_model import BitwiseARModel, WindowState
-from .utils.params import flat_from_module, load_params_npz, params_from_flat, save_params_npz
+from .utils.params import (flat_from_module, load_flat_into, load_params_npz, params_from_flat,
+                           save_params_npz)
 
 
 class _WindowStep(nn.Module):
@@ -77,10 +81,19 @@ def export_window_step(model: BitwiseARModel, batch: int = 1,
                                    strict=False)
 
 
-def load_window_step(path: str) -> Callable:
+def load_window_step(path: str, params: Union[str, Dict[str, np.ndarray], None] = None
+                     ) -> Callable:
     """Load a saved program; returns ``step(state, chunk, style) ->
-    (WindowState, motion)`` (run it with TF32 off, as the engine runs)."""
+    (WindowState, motion)`` (run it with TF32 off, as the engine runs).
+
+    ``params`` (a flat ``//``-keyed dict, or the path of an .npz of one)
+    replaces the weights the program was traced with: every parameter of the
+    model is loaded, strictly; a missing key raises KeyError and a shape
+    mismatch ValueError, as in ``params_from_flat``."""
     module = torch.export.load(path).module()
+    if params is not None:
+        flat = load_params_npz(params) if isinstance(params, str) else params
+        load_flat_into(module.model, flat)  # _WindowStep's model.-prefixed keys
 
     def step(state: WindowState, audio_chunk: torch.Tensor, style_cond: torch.Tensor):
         prev_bits, prev_attn_feat, motion = module(state.prev_bits, state.prev_attn_feat,

@@ -152,16 +152,17 @@ class BitwiseVAE(nn.Module):
     def bits_to_ms_feat(self, bits: torch.Tensor) -> torch.Tensor:
         return self.quantizer.bits_to_ms_feat(bits)
 
-    def reconstruct(self, prev_motion: torch.Tensor, this_motion: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def reconstruct(self, prev_motion: torch.Tensor, this_motion: torch.Tensor,
+                    dp_group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The differentiable autoencode pass of stage-1 training: returns
         (recon_prev, recon_this, aux_losses (2, num_levels)), the per-window
-        BSQ entropy + commit terms stacked."""
+        BSQ entropy + commit terms stacked (``dp_group`` as in
+        ``MultiScaleBSQ.encode_with_losses``)."""
         w = self.window
         bias = self.two_window_bias()
         enc_out = self._encode_feat(torch.cat([prev_motion, this_motion], dim=1), bias, 2 * w)
-        q_prev, _, loss_prev = self.quantizer.encode_with_losses(enc_out[:, :w])
-        q_this, _, loss_this = self.quantizer.encode_with_losses(enc_out[:, w:])
+        q_prev, _, loss_prev = self.quantizer.encode_with_losses(enc_out[:, :w], dp_group)
+        q_this, _, loss_this = self.quantizer.encode_with_losses(enc_out[:, w:], dp_group)
         dec = self.decoder
         h = tnn.leaky_relu(dec.inp(torch.cat([q_prev, q_this], dim=1) + self.dec_pos_embed), 0.2)
         motion = self.unnorm(dec.out(dec.layers(h, bias)))

@@ -13,8 +13,10 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops.resample1d import resize_area, resize_linear
+from ..parallel.sharding import whole
 from .nn import l2_normalize
 
 
@@ -38,11 +40,34 @@ def bits_to_values(bits: torch.Tensor, code_dim: int) -> torch.Tensor:
     return (bits.float() * 2.0 - 1.0) / (code_dim ** 0.5)
 
 
-def bsq_entropy_loss(z: torch.Tensor, code_dim: int,
-                     inv_temperature: float = 100.0) -> Tuple[torch.Tensor, torch.Tensor]:
+class _GroupSum(torch.autograd.Function):
+    """Sum of a plain tensor over a process group; the backward sums the
+    gradient over the group too (a DTensor gradient, from a tensor-parallel
+    model's ops downstream, taken whole)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = whole(grad).clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def bsq_entropy_loss(z: torch.Tensor, code_dim: int, inv_temperature: float = 100.0,
+                     dp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample and codebook soft entropy of the binary codes (training
     aux): a sigmoid relaxation of each bit's probability. Returns
-    (per_sample_entropy, codebook_entropy)."""
+    (per_sample_entropy, codebook_entropy). With ``dp_group`` z holds this
+    rank's rows of a global batch split evenly over the group: the codebook's
+    mean probability is the global batch's (an all-reduce whose backward
+    all-reduces the gradient, so that the ranks' gradients, averaged, are
+    the global batch's)."""
     p = torch.sigmoid(-4.0 * z / (code_dim ** 0.5) * inv_temperature)
     prob = torch.stack([p, 1.0 - p], dim=-1)  # (..., C, 2)
 
@@ -52,6 +77,8 @@ def bsq_entropy_loss(z: torch.Tensor, code_dim: int,
     per_sample = torch.mean(torch.sum(entropy(prob, -1), dim=-1))
     lead = tuple(range(prob.ndim - 2))  # torch.mean over dim=() would reduce every axis
     avg_prob = torch.mean(prob, dim=lead) if lead else prob  # (C, 2)
+    if dp_group is not None:
+        avg_prob = _GroupSum.apply(whole(avg_prob), dp_group) / dist.get_world_size(dp_group)
     return per_sample, torch.sum(entropy(avg_prob, -1))
 
 
@@ -80,12 +107,14 @@ class MultiScaleBSQ:
             all_bits.append(bits)
         return quantized_out, torch.cat(all_bits, dim=-2)
 
-    def encode_with_losses(self, f: torch.Tensor
+    def encode_with_losses(self, f: torch.Tensor, dp_group=None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``encode`` plus the per-level BSQ aux losses (training path):
         (quantized_out, bits, aux_losses (num_levels,)), each level's loss
         the entropy penalty times 0.1 plus the commit term (against the
-        detached quantized value) times 0.2, at inverse temperature 100."""
+        detached quantized value) times 0.2, at inverse temperature 100.
+        ``dp_group``: f holds this rank's rows of a global batch, and the
+        codebook entropy is the global batch's (``bsq_entropy_loss``)."""
         inv_temperature, entropy_w, commit_w = 100.0, 0.1, 0.2
         t = f.shape[-2]
         residual = f
@@ -95,7 +124,8 @@ class MultiScaleBSQ:
             r_down = resize_area(residual, pt)
             z = l2_normalize(r_down, dim=-1)
             q, bits = bsq_quantize(r_down, self.code_dim)
-            per_sample, codebook = bsq_entropy_loss(z, self.code_dim, inv_temperature)
+            per_sample, codebook = bsq_entropy_loss(z, self.code_dim, inv_temperature,
+                                                    dp_group)
             entropy_penalty = (per_sample - codebook) / inv_temperature
             commit = torch.mean(torch.sum((q.detach() - z) ** 2, dim=-1))
             all_losses.append(entropy_penalty * entropy_w + commit * commit_w)

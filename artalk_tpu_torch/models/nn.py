@@ -22,6 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
+
+from ..parallel.sharding import whole
 
 # ---------------------------------------------------------------------------
 # Initializers (in place, on a torch.Generator)
@@ -204,10 +207,48 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * d)
 
 
+class _DenseGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: the gradient
+    of a redistribution to a head shard comes back as a strided all-gather,
+    which the backward of the heads' split (a view) cannot view."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return grad.contiguous()
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          scale: float | torch.Tensor,
          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scaled dot-product attention over (B, H, L, c) tensors, f32 softmax."""
+    """Scaled dot-product attention over (B, H, L, c) tensors, f32 softmax.
+
+    A DTensor q (a tensor-parallel model's heads, sharded by the rules on
+    the head axis) is attended on each rank's own heads, as Megatron does:
+    k, v (and a tensor scale) are placed as q, the bias (broadcast over the
+    heads) is taken whole, and the result has q's placements; no collective
+    runs but the reduction of a pending partial sum, and each head's
+    arithmetic is the unsharded one."""
+    if isinstance(q, DTensor):
+        mesh = q.device_mesh
+        if any(p.is_partial() for p in q.placements):   # reduce pending sums first
+            q = q.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in q.placements])
+        placements = q.placements
+
+        def local(t: torch.Tensor) -> torch.Tensor:
+            if not isinstance(t, DTensor):
+                t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            return _DenseGrad.apply(t).redistribute(mesh, placements).to_local()
+
+        if isinstance(scale, torch.Tensor):
+            scale = local(scale)
+        out = sdpa(q.to_local(), local(k), local(v), scale,
+                   None if bias is None else whole(bias))
+        return DTensor.from_local(out, mesh, placements, run_check=False)
     logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale
     if bias is not None:
         logits = logits + bias

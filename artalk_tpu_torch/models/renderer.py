@@ -39,6 +39,21 @@ def _morton2(v: np.ndarray) -> np.ndarray:
     return v
 
 
+def _vertex_faces(faces: np.ndarray) -> np.ndarray:
+    """(V, D) face slots of each vertex of ``faces`` (F, 3), V = the largest
+    index + 1: the faces holding it as corner 0, in face order, then as
+    corner 1, then as corner 2; unused slots hold F (a padding row)."""
+    n_faces = len(faces)
+    corner_major = faces.T.reshape(-1)                    # (3F,): corner 0's, 1's, 2's
+    order = np.argsort(corner_major, kind="stable")
+    verts = corner_major[order]
+    counts = np.bincount(verts)
+    slot = np.arange(len(order)) - np.repeat(np.cumsum(counts) - counts, counts)
+    table = np.full((len(counts), counts.max()), n_faces, np.int64)
+    table[verts, slot] = order % n_faces
+    return table
+
+
 class MeshRenderer:
     """Batched mesh renderer with the reference's fixed-camera setup."""
 
@@ -62,6 +77,7 @@ class MeshRenderer:
                   / (np.ptp(cxy[:, 1]) + 1e-9) * 1023).astype(np.int64)
             faces = faces[np.argsort(_morton2(gx) | (_morton2(gy) << 1))]
         self.faces = torch.from_numpy(faces.astype(np.int64)).to(self.device)
+        self._vertex_faces = torch.from_numpy(_vertex_faces(faces)).to(self.device)
         s = self.image_size
         px = torch.arange(s, dtype=torch.float32, device=self.device) + 0.5
         self._py, self._px = torch.meshgrid(px, px, indexing="ij")  # (H, W)
@@ -79,15 +95,21 @@ class MeshRenderer:
         return torch.stack([px, py, z], dim=-1)
 
     def vertex_normals(self, verts: torch.Tensor) -> torch.Tensor:
-        """Area-weighted vertex normals (B, V, 3). On the card the scatter-add
-        is atomic, so its sums vary in the last bits from run to run."""
+        """Area-weighted vertex normals (B, V, 3). Each vertex sums its faces'
+        normals in one fixed order (``_vertex_faces``), the order of a
+        sequential scatter-add over the faces' corners, so that the card's
+        sums are the same on every run (an atomic scatter-add's are not)."""
         f = self.faces
         v0, v1, v2 = verts[:, f[:, 0]], verts[:, f[:, 1]], verts[:, f[:, 2]]
         fn = torch.linalg.cross(v1 - v0, v2 - v0)
-        acc = torch.zeros_like(verts)
-        for i in range(3):
-            acc.index_add_(1, f[:, i], fn)
-        return l2_normalize(acc)
+        # the padded slots' row: x + (-0.0) == x for every x, -0.0 included
+        fn = torch.cat([fn, fn.new_full((fn.shape[0], 1, 3), -0.0)], dim=1)
+        slots = self._vertex_faces
+        acc = verts.new_zeros((verts.shape[0], slots.shape[0], 3))
+        for k in range(slots.shape[1]):
+            acc = acc + fn[:, slots[:, k]]
+        rest = verts.new_zeros((verts.shape[0], verts.shape[1] - slots.shape[0], 3))
+        return l2_normalize(torch.cat([acc, rest], dim=1))
 
     # -- shading -------------------------------------------------------------
 

@@ -34,6 +34,7 @@ from ..config import Wav2VecConfig
 from ..ops.attention import flash_attention
 from ..ops.encoder_block_stack import (encoder_block_stack, pack_batched_ok,
                                        pack_encoder_weights)
+from ..parallel.sharding import whole
 from . import nn as tnn
 
 
@@ -51,7 +52,11 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     once, then the bias is added in bfloat16, as XLA computes a bf16
     convolution. (PyTorch's CPU bf16 grouped convolution loses most of its
     precision, and the plain versions must run on the CPU too.) TF32 is off
-    (``nn.no_tf32``), as in the JAX reference."""
+    (``nn.no_tf32``), as in the JAX reference. A tensor-parallel model's
+    operands (replicated by the sharding rules) go in whole: DTensor's
+    convolution rule takes only a sequence sharded with a halo exchange."""
+    x, w = whole(x), whole(w)
+    b = None if b is None else whole(b)
     with tnn.no_tf32():
         if x.dtype != torch.bfloat16:
             return F.conv1d(x, w, b, **kwargs)

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..models import nn as tnn
+from ..parallel.sharding import whole
 from ._nvcc import CSRC, build_library, library_lock
 
 PackDict = Dict[str, torch.Tensor]
@@ -87,6 +88,33 @@ def pack_weights(mats: Dict[str, torch.Tensor], dtype: torch.dtype, d: int) -> P
     return pack
 
 
+def layer_mats(layers, proj: str) -> Dict[str, torch.Tensor]:
+    """The stacked q/k/v, ``proj`` (the attention output), fc1 and fc2
+    weights of a layer stack, and their biases as ``<name>_b``, as whole
+    plain tensors: a tensor-parallel model's DTensors gathered
+    (``parallel.sharding.whole``), so that a kernel never runs on one shard.
+    Raises ValueError unless they share one width: q/k/v/``proj`` (depth, d,
+    d), fc1 (depth, d, hidden), fc2 (depth, hidden, d), biases (depth, out),
+    which a tensor-parallel shard is not."""
+    w = {}
+    for name in ("q", "k", "v", proj, "fc1", "fc2"):
+        lin = getattr(layers, name)
+        w[name] = whole(lin.w)
+        if lin.b is not None:
+            w[f"{name}_b"] = whole(lin.b)
+    depth, d = w["q"].shape[:2]
+    hidden = w["fc1"].shape[-1]
+    want = {"q": (d, d), "k": (d, d), "v": (d, d), proj: (d, d), "fc1": (d, hidden),
+            "fc2": (hidden, d)}
+    for name, (n_in, n_out) in want.items():
+        if tuple(w[name].shape) != (depth, n_in, n_out) or (
+                f"{name}_b" in w and tuple(w[f"{name}_b"].shape) != (depth, n_out)):
+            raise ValueError(f"{name} weights {tuple(w[name].shape)}: want ({depth}, {n_in}, "
+                             f"{n_out}), one width with q's; a tensor-parallel shard is not a "
+                             "whole weight")
+    return w
+
+
 @torch.no_grad()
 def pack_block_weights(blocks, num_heads: int, dtype: torch.dtype = torch.float32) -> PackDict:
     """Pack the stacked AdaLN blocks (``BitwiseARModel.blocks``) for the kernel.
@@ -99,16 +127,16 @@ def pack_block_weights(blocks, num_heads: int, dtype: torch.dtype = torch.float3
     hidden // d, d)."""
     if dtype not in WEIGHT_TYPES:
         raise ValueError(f"pack dtype {dtype} is not float32, bfloat16 or int8")
-    d = blocks.q.w.shape[-1]
-    depth = blocks.q.w.shape[0]
+    w = layer_mats(blocks, "proj")
+    depth, d = w["q"].shape[:2]
     pack = pack_weights({
-        "wqkv": torch.cat([blocks.q.w, blocks.k.w, blocks.v.w], dim=-1),
-        "wproj": blocks.proj.w, "wfc1": blocks.fc1.w, "wfc2": blocks.fc2.w}, dtype, d)
-    pack["bqkv"] = torch.cat([blocks.q.b, torch.zeros_like(blocks.q.b), blocks.v.b], dim=-1)
-    pack["bproj"] = blocks.proj.b.float().contiguous()
-    pack["bfc1"] = blocks.fc1.b.float().contiguous()
-    pack["bfc2"] = blocks.fc2.b.float().contiguous()
-    pack["qscale"] = torch.exp(torch.clamp(blocks.scale_mul, max=math.log(100.0))
+        "wqkv": torch.cat([w["q"], w["k"], w["v"]], dim=-1),
+        "wproj": w["proj"], "wfc1": w["fc1"], "wfc2": w["fc2"]}, dtype, d)
+    pack["bqkv"] = torch.cat([w["q_b"], torch.zeros_like(w["q_b"]), w["v_b"]], dim=-1)
+    pack["bproj"] = w["proj_b"].float().contiguous()
+    pack["bfc1"] = w["fc1_b"].float().contiguous()
+    pack["bfc2"] = w["fc2_b"].float().contiguous()
+    pack["qscale"] = torch.exp(torch.clamp(whole(blocks.scale_mul), max=math.log(100.0))
                                ).reshape(depth, num_heads).contiguous()
     return pack
 
@@ -309,7 +337,9 @@ def ar_block_stack(x: torch.Tensor, ada: torch.Tensor, pack: PackDict,
     bfloat16) whose rows [0, start) hold the prefix (keys L2-normalised).
     Returns (feats (B, pn, d) float32, k_new and v_new (depth, B, pn, d) in the
     cache dtype, k_new L2-normalised); the caller writes them at ``start``.
-    A CPU tensor goes through ``ar_block_stack_plain``."""
+    A CPU tensor goes through ``ar_block_stack_plain``. A DTensor argument
+    (a tensor-parallel model's activations) goes in whole (``whole``)."""
+    x, ada, k_cache, v_cache = (whole(t) for t in (x, ada, k_cache, v_cache))
     if x.device.type == "cpu":
         return ar_block_stack_plain(x, ada, pack, k_cache, v_cache, start=start,
                                     num_heads=num_heads)

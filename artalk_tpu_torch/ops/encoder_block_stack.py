@@ -22,10 +22,11 @@ import ctypes
 import torch
 
 from ..models import nn as tnn
+from ..parallel.sharding import whole
 from ._nvcc import CSRC, build_library, library_lock
 from .ar_block_stack import (WEIGHT_TYPES, PackDict, check_launch, check_pack, check_shapes,
-                             pack_dtype, pack_weights, ptr, rounder, softmax_attend,
-                             weight_matmul)
+                             layer_mats, pack_dtype, pack_weights, ptr, rounder,
+                             softmax_attend, weight_matmul)
 
 # Launches of the CUDA kernel in this process; encoder_block_stack() adds one per launch.
 LAUNCHES = 0
@@ -78,14 +79,15 @@ def pack_encoder_weights(layers, dtype: torch.dtype = torch.float32) -> PackDict
     ``ln2b``; for int8 the scales ``sqkv``, ``sout``, ``sfc1`` and ``sfc2``."""
     if dtype not in WEIGHT_TYPES:
         raise ValueError(f"pack dtype {dtype} is not float32, bfloat16 or int8")
-    d = layers.q.w.shape[-1]
+    w = layer_mats(layers, "out")
+    d = w["q"].shape[1]
     pack = pack_weights({
-        "wqkv": torch.cat([layers.q.w, layers.k.w, layers.v.w], dim=-1),
-        "wout": layers.out.w, "wfc1": layers.fc1.w, "wfc2": layers.fc2.w}, dtype, d)
-    pack["bqkv"] = torch.cat([layers.q.b, layers.k.b, layers.v.b], dim=-1).float()
-    for name, t in (("bout", layers.out.b), ("bfc1", layers.fc1.b), ("bfc2", layers.fc2.b),
-                    ("ln1s", layers.norm1.scale), ("ln1b", layers.norm1.bias),
-                    ("ln2s", layers.norm2.scale), ("ln2b", layers.norm2.bias)):
+        "wqkv": torch.cat([w["q"], w["k"], w["v"]], dim=-1),
+        "wout": w["out"], "wfc1": w["fc1"], "wfc2": w["fc2"]}, dtype, d)
+    pack["bqkv"] = torch.cat([w["q_b"], w["k_b"], w["v_b"]], dim=-1).float()
+    for name, t in (("bout", w["out_b"]), ("bfc1", w["fc1_b"]), ("bfc2", w["fc2_b"]),
+                    ("ln1s", whole(layers.norm1.scale)), ("ln1b", whole(layers.norm1.bias)),
+                    ("ln2s", whole(layers.norm2.scale)), ("ln2b", whole(layers.norm2.bias))):
         pack[name] = t.float().contiguous()
     return pack
 
@@ -139,8 +141,10 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
                         eps: float = 1e-5) -> torch.Tensor:
     """Run (B, T, d) tokens (B windows) through the whole pre-LN encoder stack;
     returns (B, T, d) float32. A CPU tensor goes through
-    ``encoder_block_stack_plain``."""
+    ``encoder_block_stack_plain``. A DTensor (a tensor-parallel model's
+    activations) goes in whole (``parallel.sharding.whole``)."""
     global LAUNCHES
+    x = whole(x)
     if x.device.type == "cpu":
         return encoder_block_stack_plain(x, pack, num_heads=num_heads, eps=eps)
     if x.device.type != "cuda":

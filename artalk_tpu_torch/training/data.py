@@ -10,7 +10,8 @@ jax), so one seed gives the same batches bit for bit in both packages.
 ``prefetch_to_device`` turns each numpy batch into CPU tensors on a host
 thread (pinned when the target is a CUDA device) while the current step
 runs; the consuming thread issues the copies to the device, so no copy is
-enqueued from a foreign thread.
+enqueued from a foreign thread. Given a mesh, it keeps each rank's dp rows,
+as the JAX version's ``sharding=`` places each device's.
 
 Clips load from .npz files ({'audio': (S,), 'motion': (T, 106)}) or
 in-memory arrays.
@@ -25,6 +26,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 
 class MotionAudioDataset:
@@ -84,22 +86,33 @@ class MotionAudioDataset:
 
 
 def prefetch_to_device(batches: Iterator[Dict[str, np.ndarray]], size: int = 2,
-                       device: Union[str, torch.device] = "cuda"
+                       device: Union[str, torch.device] = "cuda",
+                       mesh: Optional[DeviceMesh] = None, axis: int = 0
                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield ``batches`` as tensors on ``device``, at most ``size`` batches
     ahead. A host thread makes the CPU tensors (pinned for a CUDA device);
     this generator, in the caller's thread, copies each to the device
     (non-blocking from pinned memory). An exception in ``batches`` is raised
-    here."""
+    here. With ``mesh`` each array is cut along ``axis`` to this rank's dp
+    rows (the rows of dp index r of dp: [r * n, (r + 1) * n)), what the
+    mesh-aware train steps take; every rank passes the same global batches."""
     device = torch.device(device)
     pin = device.type == "cuda"
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
+    dp, r = (1, 0) if mesh is None else (mesh.size(0), mesh.get_local_rank("dp"))
+
+    def rows(v: np.ndarray) -> np.ndarray:
+        if v.shape[axis] % dp:
+            raise ValueError(f"a batch of {v.shape[axis]} rows does not split over dp={dp}")
+        n = v.shape[axis] // dp
+        return np.take(v, np.arange(r * n, (r + 1) * n), axis=axis)
 
     def producer():
         try:
             for batch in batches:
-                tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+                tensors = {k: torch.from_numpy(np.ascontiguousarray(rows(v)))
+                           for k, v in batch.items()}
                 if pin:
                     tensors = {k: v.pin_memory() for k, v in tensors.items()}
                 q.put(tensors)

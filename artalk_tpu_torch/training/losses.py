@@ -11,11 +11,14 @@ from ..models.ar_model import BitwiseARModel
 from ..models.bitwise_vae import BitwiseVAE
 
 
-def vae_loss(vae: BitwiseVAE, prev_motion: torch.Tensor, this_motion: torch.Tensor
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def vae_loss(vae: BitwiseVAE, prev_motion: torch.Tensor, this_motion: torch.Tensor,
+             dp_group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Stage-1 tokenizer loss: L2 reconstruction of both windows + the BSQ
-    entropy/commit aux terms, averaged over the two windows."""
-    recon_prev, recon_this, aux = vae.reconstruct(prev_motion, this_motion)
+    entropy/commit aux terms, averaged over the two windows. With
+    ``dp_group`` the motions are this rank's rows of the global batch: the
+    codebook entropy is taken over the global batch (``bsq_entropy_loss``),
+    so the mean of the ranks' losses is the global batch's loss."""
+    recon_prev, recon_this, aux = vae.reconstruct(prev_motion, this_motion, dp_group)
     rec = (torch.mean((recon_prev - prev_motion) ** 2)
            + torch.mean((recon_this - this_motion) ** 2))
     aux_total = torch.sum(aux) / aux.shape[0]

@@ -1,5 +1,5 @@
 """Training entry point for both stages (counterpart of
-``artalk_tpu/training/train.py``), on one device.
+``artalk_tpu/training/train.py``).
 
     # stage 1: motion tokenizer
     python -m artalk_tpu_torch.training.train --stage vae --data clips/ --steps 10000
@@ -7,6 +7,10 @@
     # stage 2: audio-conditioned AR generator (frozen VAE inside the loss)
     python -m artalk_tpu_torch.training.train --stage ar --data clips/ --steps 10000 \\
         --init assets/artalk_params.npz
+
+    # several cards: one process per card, tensor parallel over pairs of them
+    torchrun --nproc_per_node 4 -m artalk_tpu_torch.training.train --stage ar \\
+        --multihost --tp 2 --synthetic --steps 100
 
 `--data` is a directory of .npz clips ({'audio': (S,), 'motion': (T, 106)});
 `--synthetic` trains on generated clips (smoke test). The weights are saved
@@ -17,9 +21,15 @@ that the JAX package's `load_params` and the port's engine
 the loop after training: clip 0 is decoded free-running with the trained
 weights and scored with `evaluation.py` (LVE/FDD/beat-align at the 106-d
 FLAME layout; motion-space L2 otherwise). `--device` picks the device
-(default cuda). Tensor parallelism (`--tp` > 1) and multi-host jobs
-(`--multihost`) need the port of `parallel/` (ROADMAP.md, Queue 1, item 9)
-and raise until then.
+(default cuda).
+
+`--multihost` joins a multi-process job (`parallel.distributed.
+initialize_multihost`, from torchrun's environment; NCCL on the cards, gloo
+with `--device cpu`). With a process group, or `--tp` > 1 (which needs one),
+the ranks form a (dp, tp) mesh: the weights are placed by the tensor-parallel
+rules (`parallel.shard_params`), every rank builds the same dataset and
+batches from `--seed` and steps on its dp rows of each `--batch_size` batch,
+and rank 0 writes the gathered weights and runs `--eval` on them.
 """
 
 from __future__ import annotations
@@ -31,17 +41,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig
 from ..engine import resolve_device
 from ..models.ar_model import BitwiseARModel
 from ..models.bitwise_vae import BitwiseVAE
-from ..utils.params import flat_from_module, load_flat_into, load_params_npz, save_params_npz
+from ..parallel.mesh import make_mesh
+from ..parallel.sharding import shard_params
+from ..utils.params import (flat_from_module, load_flat_into, load_params_npz,
+                            params_from_flat, save_params_npz)
 from .data import MotionAudioDataset, prefetch_to_device, synthetic_clips
 from .trainer import init_state, make_ar_train_step, make_optimizer, make_vae_train_step
-
-_UNPORTED = ("needs the port of artalk_tpu/parallel/ (ROADMAP.md, Queue 1, item 9); "
-             "artalk_tpu_torch trains on one device")
 
 
 def synthetic_dataset(cfg: ModelConfig) -> MotionAudioDataset:
@@ -69,18 +80,24 @@ def main(argv=None):
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--multihost", action="store_true",
-                   help="join a multi-process job (not ported: raises)")
+                   help="join a multi-process job (torch.distributed; topology from "
+                        "torchrun's environment) before building the job-wide mesh")
     p.add_argument("--eval", action="store_true",
                    help="after AR training: free-running decode of clip 0 "
                         "scored with evaluation.py metrics (LVE/FDD/BA)")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError(f"--multihost {_UNPORTED}")
-    if args.tp != 1:
-        raise NotImplementedError(f"--tp {args.tp} {_UNPORTED}")
     device = resolve_device(args.device)
+    if args.multihost:
+        from ..parallel.distributed import initialize_multihost
+
+        info = initialize_multihost(backend="gloo" if device.type == "cpu" else None)
+        print(f"[train] multihost: process {info['process_id']}/{info['num_processes']}, "
+              f"{info['local_devices']} local / {info['global_devices']} global devices")
+    mesh = None
+    if args.tp != 1 or dist.is_initialized():
+        mesh = make_mesh(tp=args.tp, device_type=device.type)
 
     cfg = ModelConfig()
     if args.synthetic or args.data is None:
@@ -95,15 +112,18 @@ def main(argv=None):
     if args.init:
         load_flat_into(model, load_params_npz(args.init))
     model = model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
     optimizer = make_optimizer(lr=args.lr, total_steps=args.steps)
     state = init_state(model, optimizer)
     if args.stage == "ar":
-        step = make_ar_train_step(model, optimizer)
+        step = make_ar_train_step(model, optimizer, mesh=mesh)
     else:
-        step = make_vae_train_step(model, optimizer)
+        step = make_vae_train_step(model, optimizer, mesh=mesh)
 
     batches = prefetch_to_device(
-        ds.batches(args.batch_size, seed=args.seed, num_batches=args.steps), device=device)
+        ds.batches(args.batch_size, seed=args.seed, num_batches=args.steps), device=device,
+        mesh=mesh)
     t0 = time.time()
     for i, batch in enumerate(batches):
         if args.stage == "ar":
@@ -117,10 +137,17 @@ def main(argv=None):
             print(f"[train] step {i + 1}/{args.steps} {m} ({rate:.2f} steps/s)", flush=True)
 
     model.requires_grad_(False)
-    save_params_npz(flat_from_module(model), args.out)
-    print(f"[train] saved {args.out}")
+    flat = flat_from_module(model)  # a sharded model's weights gathered on every rank
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    if lead:
+        save_params_npz(flat, args.out)
+        print(f"[train] saved {args.out}")
+    if args.multihost:
+        dist.destroy_process_group()
 
-    if args.eval and args.stage == "ar":
+    if args.eval and args.stage == "ar" and lead:
+        if mesh is not None:
+            model = params_from_flat(flat, cfg).to(device)
         return _eval_decode(model, ds, cfg)
     return None
 

@@ -24,6 +24,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models.ar_model import BitwiseARModel
+from ..parallel.sharding import whole
 
 SEP = "//"
 
@@ -62,8 +63,10 @@ def save_params_npz(tree: Any, path: str) -> None:
 
 def flat_from_module(module: torch.nn.Module) -> Dict[str, np.ndarray]:
     """A port module's parameters as flat ``//``-keyed float arrays on the
-    host: the inverse of ``load_flat_into``, the keys of the JAX tree."""
-    return {k.replace(".", SEP): v.detach().cpu().numpy()
+    host: the inverse of ``load_flat_into``, the keys of the JAX tree. A
+    tensor-parallel module's DTensors are gathered (a collective: every
+    rank of its mesh calls this)."""
+    return {k.replace(".", SEP): whole(v).detach().cpu().numpy()
             for k, v in module.state_dict().items()}
 
 

@@ -6,7 +6,8 @@ StreamPool, the HTTP server, sampled decode, the speech -> gaussian-splat
 avatar (GAGAvatar) path, the alternate audio encoders (flash-attention
 wav2vec2, HuBERT, Mimi), the instance-key sort of the splat prepass, the
 debug point and texture renderers, the motion metrics, both training
-stages (and the train CLI) and the window-step export.
+stages (and the train CLI), the window-step export and the parallel package
+(a device mesh on NCCL, sharded decode, training and frame-parallel render).
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
@@ -226,7 +227,20 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      --device cuda (export_model.main, the production ModelConfig()): the
      saved program, reloaded, runs two windows of phase 5's audio with the
      carry threaded through and equals bit for bit the eager window step of
-     the model built from the params.npz written beside it.
+     the model built from the params.npz written beside it;
+ 33. the parallel package on NCCL at world 1 (one card holds one rank):
+     initialize_multihost on a free localhost port, make_mesh() -> (dp=1,
+     tp=1), shard_params on a fresh seed-0 ModelConfig() AR model: its
+     exact window-0 code bits equal phase 5's and, in the int8 mode (packs
+     of the whole weights), phase 8's, with the int8 mode's 5 AR and 1
+     encoder launches counted (the kernels line's parallel_launches); its
+     exact inference of phase 5's 3 windows in ms per window against the same
+     model before sharding (DTensor's dispatch cost), motions within 1e-4;
+     one AR step at batch TRAIN_BATCH, DropPath on, through the mesh-aware
+     trainer against the plain step from the same weights and batch: loss
+     and grad_norm within TRAIN_CPU_RTOL; render_frames_dp of phase 5's 250
+     frames equal to renderer(verts) bit for bit with 250 rasterizer
+     launches. The group is destroyed at the end.
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -241,6 +255,7 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -249,9 +264,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.flop_counter import FlopCounterMode
 
 from artalk_tpu_torch import config as tcfg
+from artalk_tpu_torch import engine as engine_mod
 from artalk_tpu_torch import evaluation
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
 from artalk_tpu_torch.models.flame import FlameModel
@@ -274,6 +292,10 @@ from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.ops import sort
 from artalk_tpu_torch.ops.resample1d import resize_area
+from artalk_tpu_torch.parallel import make_mesh, shard_params
+from artalk_tpu_torch.parallel.distributed import initialize_multihost
+from artalk_tpu_torch.parallel.render import render_frames_dp
+from artalk_tpu_torch.parallel.sharding import whole
 from artalk_tpu_torch.training import losses as train_losses
 from artalk_tpu_torch.training import train, trainer
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
@@ -609,14 +631,14 @@ def noise_audio(sample_rate: int, seconds: int = 10, seed: int = 10) -> np.ndarr
             ).astype(np.float32)
 
 
-def window0_bits(engine: ARTAvatarInferEngine, audio: np.ndarray) -> np.ndarray:
-    """Greedy code bits of the first window from the bootstrap carry."""
-    model = engine.model
-    chunk = torch.from_numpy(audio[None, : model.window_samples]).to(engine.device)
+def window0_bits(model: BitwiseARModel, audio: np.ndarray) -> np.ndarray:
+    """Greedy code bits of the first window from the bootstrap carry (of a
+    tensor-parallel model too: its bits are taken whole)."""
+    chunk = torch.from_numpy(audio[None, : model.window_samples]).to(model.pos_embed.device)
     style = model.encode_style(None)
     state = model.initial_state(style)
-    return model.decode_window(model.audio_condition(chunk), style,
-                               state.prev_attn_feat).cpu().numpy()
+    return whole(model.decode_window(model.audio_condition(chunk), style,
+                                     state.prev_attn_feat)).cpu().numpy()
 
 
 def rendered_frames(path: str):
@@ -684,7 +706,7 @@ def phase_full(dev: torch.device):
           f"ms/frame; render_frames alone {t_frames * 1e3 / 250:.2f} ms/frame; {launches} "
           "kernel launches")
     print(f"[full] wrote {out_path} ({n_frames if n_frames is not None else 'encoded'} frames)")
-    return launches, window0_bits(engine, audio), run["ms_window"], audio, motions, engine
+    return launches, window0_bits(engine.model, audio), run["ms_window"], audio, motions, engine
 
 
 def check_registry(snapshot: dict, traced: set, n_windows: int) -> None:
@@ -1014,7 +1036,8 @@ def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
     levels = len(engine.model.patch_nums)
     check_launches(mode, run, {"ar": levels * n if fused else 0, "encoder": n if fused else 0,
                                "flash": 0})
-    agree = float((window0_bits(engine, audio) == exact_bits).mean())
+    bits = window0_bits(engine.model, audio)
+    agree = float((bits == exact_bits).mean())
     print(f"[mode {mode}] inference {run['ms_window']:.2f} ms/window; stream vs offline max abs "
           f"err {run['stream_err']:.3g}; launches per {n} windows: inference "
           f"{run['launches']}, stream {run['stream_launches']}; window-0 code bits agreeing "
@@ -1023,7 +1046,7 @@ def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
     if agree < floor:
         raise AssertionError(f"[{mode}] only {agree:.4f} of the code bits agree with exact")
     return engine, {"ms_window": run["ms_window"], "launches": run["launches"], "agree": agree,
-                    "motions": run["motions"]}
+                    "motions": run["motions"], "bits": bits}
 
 
 class DecodedBits:
@@ -1926,7 +1949,7 @@ def phase_flash_path(mode: str, dev: torch.device, exact_bits: np.ndarray,
     frames = None
     if not fused:
         frames = render_mesh(engine, audio, run["motions"], f"chip_smoke_flash_{mode}")[1]
-    agree = float((window0_bits(engine, audio) == exact_bits).mean())
+    agree = float((window0_bits(engine.model, audio) == exact_bits).mean())
     print(f"[flash {mode}] inference {run['ms_window']:.2f} ms/window; stream vs offline max "
           f"abs err {run['stream_err']:.3g}; launches per {n} windows: inference "
           f"{run['launches']}, stream {run['stream_launches']}; rendered "
@@ -2461,11 +2484,13 @@ def phase_train_ar(dev: torch.device):
     return model, stage
 
 
-def one_ar_step(model, b: dict, dev: torch.device) -> dict:
+def one_ar_step(model, b: dict, dev: torch.device, mesh=None, drop_path: bool = False
+                ) -> dict:
     """One AR step of a fresh state (the schedule's step 0: learning rate 0,
-    so the weights stay as they are), DropPath off, on ``dev``."""
+    so the weights stay as they are), DropPath off unless asked for, on
+    ``dev``, through the mesh-aware step with ``mesh``."""
     opt = trainer.make_optimizer(lr=TRAIN_LR, warmup_steps=1)
-    step = trainer.make_ar_train_step(model, opt, drop_path=False)
+    step = trainer.make_ar_train_step(model, opt, mesh=mesh, drop_path=drop_path)
     _, metrics = step(trainer.init_state(model, opt), *(x.to(dev) for x in ar_args(b)))
     return {k: float(v) for k, v in metrics.items()}
 
@@ -2665,6 +2690,138 @@ def phase_export(dev: torch.device, audio: np.ndarray, checkpoint: str) -> None:
         raise AssertionError("[export] the reloaded window step differs from the eager one")
 
 
+def free_port() -> int:
+    """A localhost port that was free a moment ago (bound, then released)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def timed_generate(model, audio: np.ndarray, n_windows: int) -> tuple:
+    """``generate`` of ``audio`` zero-padded to ``n_windows`` windows, as
+    ``inference`` pads it, after a one-window warm-up: (motions taken whole,
+    ms per window by the host clock around synchronised work)."""
+    ws = model.window_samples
+    dev = model.pos_embed.device
+    padded = np.zeros(n_windows * ws, np.float32)
+    padded[: len(audio)] = audio[: n_windows * ws]
+    chunks = torch.from_numpy(padded.reshape(n_windows, 1, ws)).to(dev)
+    style = model.encode_style(None)
+    model.generate(chunks[:1], style)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    motions = whole(model.generate(chunks, style))
+    torch.cuda.synchronize(dev)
+    return motions, (time.perf_counter() - t0) * 1e3 / n_windows
+
+
+def timed_ar_step(model, b: dict, dev: torch.device, mesh=None) -> tuple:
+    """Two ``one_ar_step`` calls, DropPath on (the second timed by the host
+    clock around synchronised work): (its metrics, its ms)."""
+    one_ar_step(model, b, dev, mesh=mesh, drop_path=True)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    metrics = one_ar_step(model, b, dev, mesh=mesh, drop_path=True)
+    torch.cuda.synchronize(dev)
+    return metrics, (time.perf_counter() - t0) * 1e3
+
+
+def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
+                   motions: np.ndarray, exact_bits: np.ndarray, int8_bits: np.ndarray) -> dict:
+    """Phase 33: the parallel package on NCCL at world 1 (one card holds one
+    rank), mesh (dp=1, tp=1). A fresh production model (seed 0) with its
+    parameters placed by shard_params: its exact and int8 window-0 code
+    bits equal phases 5 and 8's, with the int8 kernels' launches counted;
+    its exact ms per window against the same model's before sharding; one
+    AR step at batch TRAIN_BATCH through the mesh-aware trainer against the
+    plain step from the same weights and batch within TRAIN_CPU_RTOL; and
+    render_frames_dp of phase 5's 250 frames bit for bit equal to the
+    renderer's, with the rasterizer's launches counted. Destroys the group
+    at the end. Returns each kernel's launches in the phase."""
+    info = initialize_multihost(coordinator_address=f"127.0.0.1:{free_port()}",
+                                num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh()
+        if tuple(mesh.shape) != (1, 1) or info["num_processes"] != 1:
+            raise AssertionError(f"[parallel] mesh {tuple(mesh.shape)}, job {info}")
+        cfg = tcfg.ModelConfig()
+        model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0)).to(dev)
+        n = math.ceil(len(audio) / model.window_samples)
+        with torch.no_grad():
+            plain_motions, plain_ms = timed_generate(model, audio, n)
+        b = train_batch(train.synthetic_dataset(cfg), TRAIN_BATCH, 4, dev)
+        plain, plain_step_ms = timed_ar_step(model, b, dev)
+        model.requires_grad_(False)
+
+        shard_params(model, mesh)
+        with torch.no_grad(), implicit_replication():
+            zero_launches()
+            sharded_motions, sharded_ms = timed_generate(model, audio, n)
+            bits = window0_bits(model, audio)
+            exact_launches = launch_counts()
+            model.cfg = with_env(MODES["int8"], lambda: engine_mod._resolve_ar_precision(cfg))
+            engine_mod.build_fused_packs(model)
+            zero_launches()
+            bits8 = window0_bits(model, audio)
+            int8_launches = launch_counts()
+        model.cfg, model.fused_pack, model.fused_audio_pack = cfg, None, None
+        sharded, sharded_step_ms = timed_ar_step(model, b, dev, mesh)
+        rel = {k: abs(sharded[k] - plain[k]) / abs(plain[k]) for k in TRAIN_CPU_RTOL}
+        del model
+        torch.cuda.empty_cache()
+
+        flame = FlameModel(flame_data, n_shape=300, n_exp=100, scale=1.0).to(dev)
+        renderer = MeshRenderer(image_size=IMAGE, faces=flame_data["faces"], scale=1.0,
+                                template_verts=flame_data["v_template"], device=dev)
+        with torch.no_grad():
+            verts = flame.motion_to_verts(torch.zeros(len(motions), 300, device=dev),
+                                          torch.from_numpy(motions).to(dev))
+            renderer(verts[:1])
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            want = renderer(verts)
+            torch.cuda.synchronize(dev)
+            plain_render_ms = (time.perf_counter() - t0) * 1e3 / len(motions)
+            zero_launches()
+            t0 = time.perf_counter()
+            frames = render_frames_dp(renderer, verts, mesh)
+            torch.cuda.synchronize(dev)
+            render_ms = (time.perf_counter() - t0) * 1e3 / len(motions)
+            raster = rasterizer.LAUNCHES
+            render_equal = torch.equal(frames, want)
+        del want, frames
+    finally:
+        dist.destroy_process_group()
+    flipped = {"exact": int((bits != exact_bits).sum()), "int8": int((bits8 != int8_bits).sum())}
+    motion_err = float((sharded_motions - plain_motions).abs().max())
+    print(f"[parallel] NCCL job {info}, mesh (dp, tp) = {tuple(mesh.shape)}: exact inference "
+          f"of {n} windows {sharded_ms:.2f} ms/window sharded vs {plain_ms:.2f} unsharded "
+          f"(DTensor dispatch {sharded_ms - plain_ms:+.2f} ms), motions max abs diff "
+          f"{motion_err:.3g}; window-0 code bits differing from phase 5's exact "
+          f"{flipped['exact']} and phase 8's int8 {flipped['int8']} of {bits.size}; launches "
+          f"exact {exact_launches}, int8 {int8_launches}")
+    print(f"[parallel] AR step at batch {TRAIN_BATCH} (DropPath on): mesh {sharded}, plain "
+          f"{plain}; relative differences {rel} (limits {TRAIN_CPU_RTOL}); ms per step (the "
+          f"second of two) mesh {sharded_step_ms:.2f}, plain {plain_step_ms:.2f}")
+    print(f"[parallel] render_frames_dp of {len(motions)} frames at {IMAGE}x{IMAGE}: "
+          f"{render_ms:.2f} ms/frame against renderer(verts) {plain_render_ms:.2f}, equal to it "
+          f"bit for bit: {render_equal}, {raster} rasterizer launches")
+    if any(flipped.values()) or motion_err > 1e-4:
+        raise AssertionError(f"[parallel] the sharded model's bits {flipped}, motions "
+                             f"{motion_err:.3g}")
+    if any(exact_launches.values()) or int8_launches != {"ar": len(cfg.vae.patch_nums),
+                                                         "encoder": 1, "flash": 0}:
+        raise AssertionError(f"[parallel] launches exact {exact_launches}, int8 "
+                             f"{int8_launches}")
+    if any(rel[k] > tol for k, tol in TRAIN_CPU_RTOL.items()):
+        raise AssertionError(f"[parallel] mesh step vs plain step {rel}")
+    if not render_equal or raster != len(motions):
+        raise AssertionError(f"[parallel] render_frames_dp equal {render_equal}, "
+                             f"{raster} rasterizer launches")
+    return {"rasterize": raster, "ar/int8": int8_launches["ar"],
+            "encoder/int8": int8_launches["encoder"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2734,6 +2891,9 @@ def main() -> int:
     checkpoint = phase_train_cli(dev, audio)
     torch.cuda.empty_cache()
     phase_export(dev, audio, checkpoint)
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(dev, flame_data, audio, motions, exact_bits,
+                              modes["int8"]["bits"])
     print(f"[train summary] {smi}: " + "; ".join(
         f"{tag} {v['ms_step']:.3f} ms/step at batch {TRAIN_BATCH}, peak "
         f"{v['peak_gib']:.2f} GiB, bound {v['bound_ms']:.3f} ms ({v['bound_by']})"
@@ -2756,18 +2916,21 @@ def main() -> int:
     kernels = [{"name": "rasterize", "route": "cuda",
                 "source": "artalk_tpu_torch/csrc/rasterizer.cu",
                 "replaces": "artalk_tpu/ops/rasterizer.py:196",
-                "launches": raster_launches, **kernel}]
+                "launches": raster_launches, "parallel_launches": parallel["rasterize"],
+                **kernel}]
     for mode, pack in PACK_OF_MODE.items():
         name = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}[pack]
         kernels.append({"name": f"ar_block_stack/{name}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/ar_block_stack.cu",
                         "replaces": "artalk_tpu/ops/ar_block_stack.py:350",
                         "launches": modes[mode]["launches"]["ar"],
+                        "parallel_launches": parallel.get(f"ar/{name}", 0),
                         "max_abs_err": ar_err[name], **times[f"ar/{name}"]})
         kernels.append({"name": f"encoder_block_stack/{name}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/encoder_block_stack.cu",
                         "replaces": "artalk_tpu/ops/encoder_block_stack.py:339",
                         "launches": modes[mode]["launches"]["encoder"],
+                        "parallel_launches": parallel.get(f"encoder/{name}", 0),
                         **train_launches.get(name, {
                             "train_launches": 0, "train_max_abs_err": None,
                             "train_condition_max_abs_err": None}),
@@ -2775,17 +2938,18 @@ def main() -> int:
     for colors in ("f32", "bf16"):
         kernels.append({"name": f"gsplat/{colors}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/gsplat.cu",
-                        "replaces": "artalk_tpu/ops/gsplat.py:638",
+                        "replaces": "artalk_tpu/ops/gsplat.py:638", "parallel_launches": 0,
                         **{k: v for k, v in splat[colors].items() if k != "ms_frame"}})
     for tag, mode in (("f32", "exact"), ("bf16", "fast")):
         kernels.append({"name": f"flash_attention/{tag}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/flash_attention.cu",
                         "replaces": "artalk_tpu/ops/attention.py:97",
-                        "launches": flash[mode]["launches"]["flash"],
+                        "launches": flash[mode]["launches"]["flash"], "parallel_launches": 0,
                         "max_abs_err": flash_err[tag], **flash_times[tag]})
     kernels.append({"name": "sort_keys", "route": "cuda",
                     "source": "artalk_tpu_torch/csrc/sort.cu",
                     "replaces": "tools/exp_pallas_sort.py:106", "launches": gaga_sorts,
+                    "parallel_launches": 0,
                     "max_abs_err": sort_err, **sort_times})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,9 @@ a pixel by one gaussian, at most T_EPS times its largest color (colors in
 order than the plain version's matmuls: float32 outputs are held to
 tests/test_attention.py's 2e-5 and gradients to its 3e-5; bf16 outputs, a
 float32 result rounded once on each side, to 1 bf16 ulp of the largest value.
-The sort kernel must equal both sort_keys_plain and torch.sort exactly, and
+The mesh renderer (its rasterizer kernel and its shading) must render the
+same frames bit for bit twice. The sort kernel must equal both
+sort_keys_plain and torch.sort exactly, and
 the splat prepass through it must give the instance lists that torch.sort
 gives. The TF32 probe (tests/tf32_probe.py) runs HuBERT in a fresh process
 that imports only the HuBERT module: its outputs must not move when TF32 is
@@ -529,3 +531,22 @@ def test_prepass_sort_matches_torch_sort(cuda, size, monkeypatch):
             m.setattr(tgs, "sort_keys", lambda k: torch.sort(k).values)
             _, _, want_inst, want_offsets = tgs.prepass(*args, size=size)
         assert torch.equal(inst, want_inst) and torch.equal(offsets, want_offsets)
+
+
+@pytest.mark.cuda
+def test_mesh_renderer_is_deterministic(cuda):
+    """Two renders of the same frames are equal bit for bit on the card (the
+    vertex normals sum in a fixed order, not by an atomic scatter-add), as
+    parallel.render_frames_dp's equality with the renderer needs."""
+    from artalk_tpu_torch.models.flame import FlameModel
+    from artalk_tpu_torch.models.renderer import MeshRenderer
+    from artalk_tpu_torch.utils.assets import synthetic_flame
+
+    data = synthetic_flame(num_verts=2000, num_faces=4000, seed=3)
+    renderer = MeshRenderer(256, data["faces"], template_verts=data["v_template"], device=cuda)
+    motion = torch.from_numpy(np.random.default_rng(0).normal(0, 0.3, (8, 106))
+                              .astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        verts = FlameModel(data).to(cuda).motion_to_verts(torch.zeros(8, 300, device=cuda),
+                                                          motion)
+        assert torch.equal(renderer(verts), renderer(verts))

@@ -1,9 +1,10 @@
 """The window-step export of artalk_tpu_torch (counterpart of
 tests/test_export.py): the saved and reloaded ``torch.export`` program
 reproduces the live window step exactly over two windows with the carry
-threaded through, on tests/test_export.py's small config; the configurations
-whose step launches a ctypes kernel raise; the CLI writes the program and a
-``params.npz`` that loads back into the port. The window step itself is held
+threaded through, on tests/test_export.py's small config, and so does the
+program loaded with another checkpoint's weights (a missing or misshapen one
+raises); the configurations whose step launches a ctypes kernel raise; the
+CLI writes the program and a ``params.npz`` that loads back into the port. The window step itself is held
 to JAX's by tests/test_torch_ar_model.py."""
 
 import dataclasses
@@ -15,7 +16,8 @@ import torch
 
 from artalk_tpu_torch import export_model
 from artalk_tpu_torch.models.ar_model import BitwiseARModel
-from artalk_tpu_torch.utils.params import flat_from_module, load_params_npz, params_from_flat
+from artalk_tpu_torch.utils.params import (flat_from_module, load_params_npz, params_from_flat,
+                                           save_params_npz)
 
 from test_export import CFG
 from test_torch_params import torch_config
@@ -29,14 +31,9 @@ def model():
     return BitwiseARModel(TCFG).init(torch.Generator().manual_seed(0))
 
 
-def test_exported_window_step_roundtrip(model, tmp_path):
-    """Export at batch 2, save, load: two windows of the loaded program equal
-    the eager window step bit for bit, carry and motions."""
-    program = export_model.export_window_step(model, batch=2, device="cpu")
-    path = str(tmp_path / "window_step_b2.pt2")
-    torch.export.save(program, path)
-    step = export_model.load_window_step(path)
-
+def assert_steps_equal(step, model: BitwiseARModel) -> None:
+    """Two windows of ``step`` (batch 2) equal ``model``'s eager window step
+    bit for bit, carry and motions."""
     rng = np.random.default_rng(0)
     style = torch.from_numpy(rng.standard_normal((2, 1, CFG.ar.embed_dim)).astype(np.float32)
                              * 0.1)
@@ -51,6 +48,45 @@ def test_exported_window_step_roundtrip(model, tmp_path):
             assert torch.equal(got.prev_attn_feat, want.prev_attn_feat)
             assert torch.equal(got_motion, want_motion)
     assert want_motion.shape == (2, CFG.vae.window, CFG.vae.motion_dim)
+
+
+@pytest.fixture(scope="module")
+def saved_program(model, tmp_path_factory):
+    """The window step of ``model`` (weights A) exported at batch 2 and saved."""
+    path = str(tmp_path_factory.mktemp("exported") / "window_step_b2.pt2")
+    torch.export.save(export_model.export_window_step(model, batch=2, device="cpu"), path)
+    return path
+
+
+def test_exported_window_step_roundtrip(model, saved_program):
+    """Export at batch 2, save, load: two windows of the loaded program equal
+    the eager window step bit for bit, carry and motions."""
+    assert_steps_equal(export_model.load_window_step(saved_program), model)
+
+
+@pytest.mark.parametrize("form", ["dict", "npz"])
+def test_loaded_program_takes_other_weights(saved_program, tmp_path, form):
+    """The program traced with weights A, loaded with weights B (a flat dict,
+    or params.npz as ``main`` writes it): two windows equal B's eager window
+    step bit for bit."""
+    other = BitwiseARModel(TCFG).init(torch.Generator().manual_seed(1))
+    flat = flat_from_module(other)
+    params = flat
+    if form == "npz":
+        params = str(tmp_path / "params.npz")
+        save_params_npz(flat, params)
+    assert_steps_equal(export_model.load_window_step(saved_program, params), other)
+
+
+def test_loaded_program_refuses_incomplete_weights(saved_program, model):
+    flat = flat_from_module(model)
+    del flat["blocks//q//w"]
+    with pytest.raises(KeyError, match="blocks//q//w"):
+        export_model.load_window_step(saved_program, flat)
+    flat = flat_from_module(model)
+    flat["pos_embed"] = flat["pos_embed"][:, :-1]
+    with pytest.raises(ValueError, match="pos_embed"):
+        export_model.load_window_step(saved_program, flat)
 
 
 @pytest.mark.parametrize("change,name", [

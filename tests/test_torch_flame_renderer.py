@@ -17,6 +17,7 @@ from artalk_tpu.models.renderer import MeshRenderer as JaxRenderer
 from artalk_tpu.utils.assets import synthetic_flame
 
 from artalk_tpu_torch.models.flame import FlameModel, batch_rodrigues
+from artalk_tpu_torch.models.nn import l2_normalize
 from artalk_tpu_torch.models.renderer import MeshRenderer
 from artalk_tpu_torch.utils import assets as tassets
 
@@ -71,3 +72,19 @@ def test_mesh_frames_match_jax(rng, flame_data):
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert (diff <= 1).mean() >= 0.999, (diff > 1).mean()
     assert (got[:, :size] < 250).mean() > 0.05  # the head covers part of the white frame
+
+
+def test_vertex_normals_sum_in_scatter_order(rng, flame_data):
+    """The renderer's fixed-order normal sums (the same on every run on the
+    card) equal a sequential scatter-add's bit for bit on the CPU."""
+    tren = MeshRenderer(128, flame_data["faces"], template_verts=flame_data["v_template"],
+                        device="cpu")
+    verts = FlameModel(flame_data).motion_to_verts(torch.zeros(3, 300),
+                                                   torch.from_numpy(_motions(rng, 3)))
+    f = tren.faces
+    fn = torch.linalg.cross(verts[:, f[:, 1]] - verts[:, f[:, 0]],
+                            verts[:, f[:, 2]] - verts[:, f[:, 0]])
+    acc = torch.zeros_like(verts)
+    for i in range(3):
+        acc.index_add_(1, f[:, i], fn)
+    assert torch.equal(tren.vertex_normals(verts), l2_normalize(acc))

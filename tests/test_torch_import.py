@@ -38,7 +38,8 @@ def test_import_leaves_jax_out():
     flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers,
     the evaluation metrics, the native media runtime, the HTTP server, the
     checkpoint converter, the web UI, the metrics registry, the training
-    package and the window-step export are among them."""
+    package, the window-step export and the parallel package are among
+    them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -54,7 +55,9 @@ def test_import_leaves_jax_out():
                    "artalk_tpu_torch.app_gradio", "artalk_tpu_torch.utils.convert",
                    "artalk_tpu_torch.utils.metrics", "artalk_tpu_torch.training.train",
                    "artalk_tpu_torch.training.trainer", "artalk_tpu_torch.training.data",
-                   "artalk_tpu_torch.export_model"} <= imported
+                   "artalk_tpu_torch.export_model", "artalk_tpu_torch.parallel.mesh",
+                   "artalk_tpu_torch.parallel.sharding", "artalk_tpu_torch.parallel.render",
+                   "artalk_tpu_torch.parallel.distributed"} <= imported
 
 
 _IMPORT_BLOCKED = """
@@ -64,13 +67,14 @@ for name in ("jax", "jaxlib", "artalk_tpu"):
 import artalk_tpu_torch.training
 from artalk_tpu_torch.training import data, losses, train, trainer
 from artalk_tpu_torch import export_model
+from artalk_tpu_torch.parallel import distributed, mesh, render, sharding
 print(sorted(artalk_tpu_torch.training.__all__))
 """
 
 
 def test_training_and_export_import_with_jax_blocked():
-    """The training package and the export entry point import in a process
-    where importing jax, jaxlib or artalk_tpu fails."""
+    """The training package, the export entry point and the parallel package
+    import in a process where importing jax, jaxlib or artalk_tpu fails."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_BLOCKED], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -540,9 +540,3 @@ def test_train_main_writes_params_jax_loads(stage, tmp_path, monkeypatch):
         # the frozen VAE is not trained (its decay at lr 1e-7 is below float32's step)
         np.testing.assert_allclose(loaded["vae//decoder//inp//w"], init["vae//decoder//inp//w"],
                                    rtol=1e-6)
-
-
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--multihost"]])
-def test_train_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        ttrain.main(["--stage", "ar", "--synthetic", "--device", "cpu"] + flags)
