@@ -241,6 +241,13 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      and grad_norm within TRAIN_CPU_RTOL; render_frames_dp of phase 5's 250
      frames equal to renderer(verts) bit for bit with 250 rasterizer
      launches. The group is destroyed at the end.
+ 34. the port's bench (artalk_tpu_torch.bench.run, every section, BENCH_REPEATS
+     repeats; the sections' launch checks included): every key of every
+     section finite and positive, no errors, every _mfu and _membw_frac in
+     (0, 1], the card's name and power limit in its device object; the dict
+     printed on one line, the seconds it took, and each kernel's launches
+     over the run (the rasterizer, both block stacks, the splat and the sort
+     launched at least once).
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -268,13 +275,13 @@ import torch.distributed as dist
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.flop_counter import FlopCounterMode
 
+from artalk_tpu_torch import bench
 from artalk_tpu_torch import config as tcfg
 from artalk_tpu_torch import engine as engine_mod
 from artalk_tpu_torch import evaluation
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
 from artalk_tpu_torch.models.flame import FlameModel
 from artalk_tpu_torch.models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS
-from artalk_tpu_torch.models.gagavatar.generators import transform_emoca_to_p3d
 from artalk_tpu_torch.models import mimi as tmimi
 from artalk_tpu_torch.models import nn as tnn
 from artalk_tpu_torch.models import wav2vec as wav2vec_mod
@@ -300,16 +307,16 @@ from artalk_tpu_torch.training import losses as train_losses
 from artalk_tpu_torch.training import train, trainer
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 from artalk_tpu_torch.utils.metrics import GLOBAL_METRICS, device_trace
+from artalk_tpu_torch.utils import roofline
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
+from artalk_tpu_torch.utils.roofline import (FP32_FLOP_PER_S, HBM_BYTES_PER_S,
+                                             SPLAT_COMPOSITE_FLOP, SPLAT_EVAL_FLOP)
+from artalk_tpu_torch.utils.timing import cuda_ms
 from artalk_tpu_torch.utils.video import read_y4m
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 IMAGE = 512
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM
-FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense
-TF32_FLOP_PER_S = 495e12     # TF32 tensor cores, dense
 MODES = {  # environment of each precision mode of phase 8
     "fused": {"ARTALK_AR_FUSED": "1"},
     "fast": {"ARTALK_AR_PRECISION": "fast"},
@@ -350,15 +357,6 @@ SPLAT_NEAR, SPLAT_FAR_SHARE = 1e-5, 1e-4
 # fast vs exact frames (uint8 yuv420p): most and mean |difference| in LSB
 # (NVIDIA H100 80GB HBM3, 700 W: max 1, mean 0.135; PERF.md, PR 3)
 GAGA_FAST_LSB = {"max": 4, "mean": 0.5}
-# operations the splat needs for each (pixel, gaussian) pair it composites
-# before the pixel stops, i.e. whose alpha passes 1/255 (ops/gsplat.py): the
-# alpha evaluation (dx, dy, the conic's quadratic form, exp, opacity, min:
-# 14 FLOP) and the composite (w = alpha T, 32 fused multiply-adds,
-# T *= 1 - alpha: 67 FLOP). Pairs whose alpha falls below the cut are left
-# out: a cull per pixel block could rule most of them out cheaply.
-SPLAT_EVAL_FLOP = 14
-SPLAT_COMPOSITE_FLOP = 67
-
 # flash attention vs flash_attention_plain: float32 within tests/test_attention.py's
 # atol (both compute in float32; the sums run in another order), bf16 within
 # 1 bf16 ulp of the largest value (a float32 result rounded once on each side)
@@ -435,6 +433,8 @@ TRAIN_CPU_RTOL = {"loss": 1e-6, "grad_norm": 1e-5}
 # phase 30: the fused float32 encoder's loss against the exact step's within
 # this multiple of the first-order bound from ENCODER_TOL["f32"]
 FUSED_LOSS_MARGIN = 2.0
+# phase 34: measurements per bench section (a spread prints, the phase stays short)
+BENCH_REPEATS = 2
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -450,23 +450,9 @@ GOLDEN_SMALL_CFG = tcfg.ModelConfig(
 )
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` on the card, by CUDA events after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    info = bench.device_info(torch.device("cuda"))
+    smi = f"{info['name']}, {info['power_limit']}"
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -565,16 +551,11 @@ def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
     # each face against the pixel centres of its own bounding box (13 fp32
     # operations each: three planes of 2 mul + 2 add, and w0 + w1),
     # whichever takes longer
-    tests = []
-    for vs in screens:
-        tri = vs[faces.long()]                                     # (F, 3, 3)
-        lo = torch.ceil(tri[..., :2].amin(1) - 0.5).clamp(min=0)
-        hi = torch.floor(tri[..., :2].amax(1) - 0.5).clamp(max=IMAGE - 1)
-        tests.append(int((hi - lo + 1).clamp(min=0).prod(1).sum()))
-    moved = (screens[0].numel() * 4 + faces.numel() * faces.element_size()
-             + IMAGE * IMAGE * 8)
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = float(np.mean(tests)) * 13 / FP32_FLOP_PER_S * 1e3
+    tests = [roofline.coverage_tests(vs, faces, IMAGE, IMAGE) for vs in screens]
+    work = roofline.rasterize_work(screens[0].shape[0], faces.shape[0], faces.element_size(),
+                                   IMAGE, IMAGE, float(np.mean(tests)))
+    moved = int(work.bytes)
+    bytes_ms, ops_ms = roofline.bytes_ms(work.bytes), roofline.fp32_ms(work.flops)
     bound_ms = max(bytes_ms, ops_ms)
     print(f"[kernel] ms/frame by CUDA events: rasterize (setup + raster kernels, end to end) "
           f"{ms:.4f}, setup kernel alone {setup_only_ms:.4f}, raster kernel alone "
@@ -961,25 +942,11 @@ def phase_encoder_kernel(model, packs: dict) -> dict:
     return errs
 
 
-def with_env(env: dict, fn):
-    """Run ``fn()`` with the precision switches set to ``env``."""
-    keys = ("ARTALK_AR_PRECISION", "ARTALK_AR_FUSED", "ARTALK_GAGA_PRECISION")
-    saved = {k: os.environ.pop(k, None) for k in keys}
-    os.environ.update(env)
-    try:
-        return fn()
-    finally:
-        for k in keys:
-            os.environ.pop(k, None)
-            if saved[k] is not None:
-                os.environ[k] = saved[k]
-
-
 def build_engine(dev: torch.device, env: dict, config: tcfg.ModelConfig,
                  **kwargs) -> ARTAvatarInferEngine:
     """An engine on ``dev`` with random seed-0 weights, the precision
     switches set to ``env`` while it is built."""
-    return with_env(env, lambda: ARTAvatarInferEngine(
+    return bench.with_env(env, lambda: ARTAvatarInferEngine(
         device=dev, config=config, assets_dir=os.path.join(ROOT, "assets"),
         output_dir=os.path.join(ROOT, "render_results", "chip_smoke"), image_size=IMAGE,
         seed=0, **kwargs))
@@ -1403,26 +1370,22 @@ def phase_sampled(engine: ARTAvatarInferEngine, audio: np.ndarray, tag: str) -> 
 
 def level_bound(model, pack: dict, level: int, cache_bytes: int):
     """(bytes ms, operations ms, operations ms at the fp32 rate) of one AR
-    level at B = 1: each input read once (weights, scales, biases, tokens,
-    AdaLN rows, the cache prefix), each output written once; 2 FLOP per
-    weight per token plus attention. A float32 pack's operations at the
-    cheapest rate that keeps its precision (flash_bound's rule, as the
-    encoder's): three TF32 products at 495 TFLOP/s or one fp32
-    product at 67, i.e. 3xTF32 (the fp32-rate bound is printed beside it);
-    bf16 and int8 packs at the bf16 tensor-core rate."""
-    depth, d, pn = model.depth, model.embed_dim, model.patch_nums[level]
-    start = model.prev_len + model.offsets[level]
-    weights = sum(pack[n].numel() for n in ("wqkv", "wproj", "wfc1", "wfc2"))
-    moved = sum(t.numel() * t.element_size() for t in pack.values())
-    moved += pn * d * 4 + depth * pn * 6 * d * 4 + 2 * depth * start * d * cache_bytes
-    moved += pn * d * 4 + 2 * depth * pn * d * cache_bytes
-    flop = 2 * weights * pn + depth * 2 * 2 * pn * (start + pn) * d
-    fp32_ms = flop / FP32_FLOP_PER_S * 1e3
-    if pack["wqkv"].dtype == torch.float32:
-        ops_ms = min(3 * flop / TF32_FLOP_PER_S * 1e3, fp32_ms)
-    else:
-        ops_ms = flop / BF16_FLOP_PER_S * 1e3
-    return moved / HBM_BYTES_PER_S * 1e3, ops_ms, fp32_ms
+    level at B = 1 (``roofline.ar_level_work``): a float32 pack's operations
+    at the cheapest rate that keeps its precision, 3xTF32 (the fp32-rate
+    bound is printed beside it); bf16 and int8 packs at the bf16
+    tensor-core rate. The pack's bytes are checked against the model's."""
+    dtype = pack["wqkv"].dtype
+    hidden = pack["wfc1"].shape[-1]
+    work = roofline.ar_level_work(model.depth, model.embed_dim, hidden, model.num_heads,
+                                  model.patch_nums[level], model.prev_len + model.offsets[level],
+                                  dtype, cache_bytes)
+    have = sum(t.numel() * t.element_size() for t in pack.values())
+    want = roofline.pack_bytes(model.depth, model.embed_dim, hidden, dtype,
+                               5 * model.embed_dim + hidden + model.num_heads)
+    if have != want:
+        raise AssertionError(f"AR pack {dtype}: {have} bytes, the work model counts {want}")
+    return (roofline.bytes_ms(work.bytes), roofline.matmul_ms(work.flops, dtype),
+            roofline.fp32_ms(work.flops))
 
 
 def library_encoder(model, dtype: torch.dtype) -> torch.nn.Module:
@@ -1498,19 +1461,24 @@ def phase_times(model, ar_packs: dict, enc_packs: dict) -> dict:
         print(f"[times] library TransformerEncoder {dtype}: {lib_ms[dtype]:.4f} ms "
               f"(max abs diff from the float32 plain stack {diff:.3g})")
         del lib
-    weights = sum(enc_packs["f32"][n].numel() for n in ("wqkv", "wout", "wfc1", "wfc2"))
     cfg = model.cfg.wav2vec
-    t = x.shape[1]
-    flop = 2 * weights * t + cfg.num_hidden_layers * 2 * 2 * t * t * cfg.hidden_size
     for name, pack in enc_packs.items():
-        moved = sum(v.numel() * v.element_size() for v in pack.values()) + 2 * x.numel() * 4
-        # float32 at the cheapest rate that keeps its precision (flash_bound's
-        # rule): three TF32 products at 495 TFLOP/s or one fp32 at 67, i.e.
-        # 3xTF32; before PR 7 it was bound at the fp32 rate (fp32_ms below)
-        fp32_ms = flop / FP32_FLOP_PER_S * 1e3
-        o_ms = (min(3 * flop / TF32_FLOP_PER_S * 1e3, fp32_ms) if name == "f32"
-                else flop / BF16_FLOP_PER_S * 1e3)
-        b_ms = moved / HBM_BYTES_PER_S * 1e3
+        dtype = pack["wqkv"].dtype
+        work = roofline.encoder_window_work(cfg.num_hidden_layers, cfg.hidden_size,
+                                            cfg.intermediate_size, x.shape[1], dtype)
+        have = sum(v.numel() * v.element_size() for v in pack.values())
+        want = roofline.pack_bytes(cfg.num_hidden_layers, cfg.hidden_size,
+                                   cfg.intermediate_size, dtype,
+                                   9 * cfg.hidden_size + cfg.intermediate_size)
+        if have != want:
+            raise AssertionError(f"encoder pack {dtype}: {have} bytes, the work model counts "
+                                 f"{want}")
+        flop = work.flops
+        # float32 at the cheapest rate that keeps its precision, 3xTF32 (the
+        # fp32-rate bound, fp32_ms, is printed beside it)
+        fp32_ms = roofline.fp32_ms(flop)
+        o_ms = roofline.matmul_ms(flop, dtype)
+        b_ms = roofline.bytes_ms(work.bytes)
         k = cuda_ms(lambda: enc_stack.encoder_block_stack(x, pack, num_heads=heads), 10)
         p = cuda_ms(lambda: enc_stack.encoder_block_stack_plain(x, pack, num_heads=heads), 3)
         lib = lib_ms[torch.float32 if name == "f32" else torch.bfloat16]
@@ -1583,38 +1551,13 @@ def phase_gaga(mode: str, dev: torch.device, audio: np.ndarray, motions: np.ndar
                            "ms_frame": t_frames * 1e3 / len(motions)}
 
 
-def bench_splat_scene(dev: torch.device) -> list:
-    """bench.py's gsplat scene (seed 3): 5023 head-sized gaussians and two
-    296^2 sheets of small ones, 180,255 in all."""
-    n_head, n_plane = 5023, 296 * 296
-    n = n_head + 2 * n_plane
-    rng = np.random.default_rng(3)
-    xyz = np.concatenate([rng.normal(0, 0.09, (n_head, 3)),
-                          rng.normal(0, 0.12, (2 * n_plane, 3))]).astype(np.float32)
-    colors = rng.random((n, 32)).astype(np.float32)
-    opac = (rng.random((n, 1)) * 0.9 + 0.05).astype(np.float32)
-    scales = (rng.random((n, 3)) * 0.004 + 0.001).astype(np.float32)
-    q = rng.normal(size=(n, 4)).astype(np.float32)
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    cam = np.array([[-1, 0, 0, 0], [0, 1, 0, 0], [0, 0, -1, 5000.0 / 512]], np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (xyz, colors, opac, scales, q, cam)]
-
-
 def avatar_splat_scene(engine: ARTAvatarInferEngine) -> list:
     """The synthetic_0 avatar's gaussians at the neutral pose: the splat
     arguments of one frame of the main path."""
     gaga = engine.gagavatar
     gaga.set_avatar_id("synthetic_0")
     gaga._build_gs_params()
-    gs, cache = gaga._gs_params, gaga._feature_cache
-    dev = gs["xyz"].device
-    with torch.no_grad():
-        verts = engine.gagavatar_flame(cache["shapecode"], torch.zeros((1, 100), device=dev),
-                                       torch.zeros((1, 6), device=dev))[0]
-    cam = torch.cat([transform_emoca_to_p3d(torch.zeros((1, 3), device=dev))[0][:, :3],
-                     cache["transform"][:, 3:4]], dim=-1)
-    return [torch.cat([verts, gs["xyz"][0, NUM_FLAME_VERTS:]]), gs["colors"][0],
-            gs["opacities"][0], gs["scales"][0], gs["rotations"][0], cam]
+    return bench.avatar_splat_scene(gaga, engine.gagavatar_flame)
 
 
 def reversed_tiles(inst: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
@@ -1751,12 +1694,10 @@ def phase_gaga_times(engine: ARTAvatarInferEngine, colors: str) -> dict:
     # the pixels stop, by the plain culling rule
     keep = gsplat.block_culling(geo, inst, offsets, size)
     culled = int(gsplat.composite_plain(geo, cols, inst, offsets, size, keep=keep)[1])
-    # each input read once (the gaussians' 6 geometry floats and 32 colors,
-    # the instance lists), the (32, size, size) float32 image written once
-    moved = (geo.shape[0] * (6 * 4 + 32 * cols.element_size()) + inst.numel() * 4
-             + offsets.numel() * 4 + 32 * size * size * 4)
-    flop = composited * (SPLAT_EVAL_FLOP + SPLAT_COMPOSITE_FLOP)
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+    work = roofline.splat_work(geo.shape[0], cols.element_size(), inst.numel(),
+                               offsets.numel(), size, composited)
+    moved = work.bytes
+    bytes_ms, ops_ms = roofline.bytes_ms(work.bytes), roofline.fp32_ms(work.flops)
     bound = max(bytes_ms, ops_ms)
     print(f"[times] gaga {colors} colors, SR {'bf16' if bf16 else 'float32'}, per "
           f"frame: splat kernel {kernel_ms:.4f} ms, splat_tiles_plain {plain_ms:.2f} ms, "
@@ -1780,7 +1721,7 @@ def phase_gaga_all(dev: torch.device, audio: np.ndarray, motions: np.ndarray):
     """Phases 11-13: the GAGAvatar path per precision mode, the splat kernel
     on both scenes, the times. Returns the kernels-line fields per color
     type, the sort launches of phase 11's exact run and the two scenes."""
-    frames, gaga, times, splat_scenes = {}, {}, {}, {"bench": bench_splat_scene(dev)}
+    frames, gaga, times, splat_scenes = {}, {}, {}, {"bench": bench.bench_splat_scene(dev)}
     for mode, colors in GAGA_MODES.items():
         torch.cuda.empty_cache()
         engine, frames[mode], gaga[mode] = phase_gaga(mode, dev, audio, motions)
@@ -2062,26 +2003,6 @@ def phase_mimi(mode: str, dev: torch.device, audio: np.ndarray) -> dict:
     return {"ms_window": run["ms_window"], "launches": run["launches"], **codes}
 
 
-def flash_bound(b: int, h: int, lq: int, lk: int, hd: int, dtype: torch.dtype):
-    """(bytes ms, operations ms) of one flash call: q, k, v read once and the
-    output written once; each product (q.k^T and P.V, 2 * B * H * Lq * Lk * hd
-    FLOP each) at the rate of the cheapest instruction sequence that keeps
-    the function's precision. bf16 inputs: q.k^T is one bf16 tensor-core
-    product (bf16 x bf16 is exact in float32); P.V takes p in float32, kept
-    to 16 bits as bf16 hi + lo, so two bf16 products; all at 989 TFLOP/s.
-    float32 inputs: three TF32 products per product (hi.hi, hi.lo, lo.hi) at
-    495 TFLOP/s, or one at the 67 TFLOP/s fp32 rate, whichever takes less
-    time."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    moved = (2 * b * h * lq * hd + 2 * b * h * lk * hd) * size
-    product = 2 * b * h * lq * lk * hd
-    if dtype == torch.bfloat16:
-        ops_s = 3 * product / BF16_FLOP_PER_S
-    else:
-        ops_s = 2 * min(3 * product / TF32_FLOP_PER_S, product / FP32_FLOP_PER_S)
-    return moved / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
-
-
 def sdpa_backend(q, k, v) -> str:
     """The backend scaled_dot_product_attention's dispatcher picks for these
     inputs."""
@@ -2113,7 +2034,7 @@ def phase_flash_times(dev: torch.device, exact_ms: float) -> dict:
                             max(2, reps // 5))
             sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, scale=0.125), reps)
-            bytes_ms, ops_ms = flash_bound(1, h, n, n, 64, dtype)
+            bytes_ms, ops_ms = roofline.flash_bound(1, h, n, n, 64, dtype)
             bound = max(bytes_ms, ops_ms)
             print(f"[times] flash {tag} {site} (1,{h},{n},64): wrapper {ms:.5f} ms, kernel "
                   f"alone {alone:.5f}, plain {plain:.5f}, sdpa {sdpa:.5f} "
@@ -2331,7 +2252,7 @@ def phase_sort_times(dev: torch.device, avatar_keys: torch.Tensor) -> dict:
         wrapper = cuda_ms(lambda: sort.sort_keys(keys), 20)
         plain = cuda_ms(lambda: sort.sort_keys_plain(keys), 3)
         library = cuda_ms(lambda: torch.sort(keys), 20)
-        bound = 8 * n / HBM_BYTES_PER_S * 1e3
+        bound = roofline.bytes_ms(roofline.sort_work(n).bytes)
         print(f"[times] sort {tag} ({n} keys, {cuda_launches} CUDA launches a sort, "
               f"{launched.value} reported by the entry point alone): wrapper {wrapper:.5f} ms, "
               f"kernel alone {alone:.5f}, plain {plain:.5f}, torch.sort {library:.5f}, bound "
@@ -2759,7 +2680,7 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
             sharded_motions, sharded_ms = timed_generate(model, audio, n)
             bits = window0_bits(model, audio)
             exact_launches = launch_counts()
-            model.cfg = with_env(MODES["int8"], lambda: engine_mod._resolve_ar_precision(cfg))
+            model.cfg = bench.with_env(MODES["int8"], lambda: engine_mod._resolve_ar_precision(cfg))
             engine_mod.build_fused_packs(model)
             zero_launches()
             bits8 = window0_bits(model, audio)
@@ -2820,6 +2741,34 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
                              f"{raster} rasterizer launches")
     return {"rasterize": raster, "ar/int8": int8_launches["ar"],
             "encoder/int8": int8_launches["encoder"]}
+
+
+def phase_bench() -> dict:
+    """Phase 34: the port's bench, every section, on the card. Returns the
+    kernels' launches over the run."""
+    zero_launches()
+    t0 = time.perf_counter()
+    out = bench.run(bench.KNOWN_SECTIONS, "cuda", repeats=BENCH_REPEATS)
+    seconds = time.perf_counter() - t0
+    launches = {"rasterize": rasterizer.LAUNCHES, "ar": ar_stack.LAUNCHES,
+                "encoder": enc_stack.LAUNCHES, "gsplat": gsplat.LAUNCHES, "sort": sort.LAUNCHES,
+                "flash": attention.LAUNCHES}
+    print(f"[bench] {json.dumps(out)}")
+    print(f"[bench] every section, {BENCH_REPEATS} repeats: {seconds:.1f} s; launches {launches}")
+    keys = [k for name in bench.KNOWN_SECTIONS for k in bench.SECTION_KEYS[name]]
+    bad = {k: out.get(k) for k in keys
+           if not isinstance(out.get(k), (int, float)) or not math.isfinite(out[k]) or out[k] <= 0}
+    shares = {k: v for k, v in out.items()
+              if k.endswith(("_mfu", "_membw_frac")) and not 0 < v <= 1.0}
+    if "errors" in out or bad or shares:
+        raise AssertionError(f"[bench] errors {out.get('errors')}, keys missing or not "
+                             f"positive {bad}, shares outside (0, 1] {shares}")
+    if not out["device"]["name"] or not out["device"]["power_limit"]:
+        raise AssertionError(f"[bench] device {out['device']}")
+    idle = [k for k in ("rasterize", "ar", "encoder", "gsplat", "sort") if not launches[k]]
+    if idle:
+        raise AssertionError(f"[bench] kernels never launched: {idle}")
+    return launches
 
 
 def main() -> int:
@@ -2894,6 +2843,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = phase_parallel(dev, flame_data, audio, motions, exact_bits,
                               modes["int8"]["bits"])
+    torch.cuda.empty_cache()
+    phase_bench()
     print(f"[train summary] {smi}: " + "; ".join(
         f"{tag} {v['ms_step']:.3f} ms/step at batch {TRAIN_BATCH}, peak "
         f"{v['peak_gib']:.2f} GiB, bound {v['bound_ms']:.3f} ms ({v['bound_by']})"

@@ -38,8 +38,8 @@ def test_import_leaves_jax_out():
     flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers,
     the evaluation metrics, the native media runtime, the HTTP server, the
     checkpoint converter, the web UI, the metrics registry, the training
-    package, the window-step export and the parallel package are among
-    them."""
+    package, the window-step export, the parallel package and the bench
+    with its timing and roofline helpers are among them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -57,7 +57,8 @@ def test_import_leaves_jax_out():
                    "artalk_tpu_torch.training.trainer", "artalk_tpu_torch.training.data",
                    "artalk_tpu_torch.export_model", "artalk_tpu_torch.parallel.mesh",
                    "artalk_tpu_torch.parallel.sharding", "artalk_tpu_torch.parallel.render",
-                   "artalk_tpu_torch.parallel.distributed"} <= imported
+                   "artalk_tpu_torch.parallel.distributed", "artalk_tpu_torch.bench",
+                   "artalk_tpu_torch.utils.timing", "artalk_tpu_torch.utils.roofline"} <= imported
 
 
 _IMPORT_BLOCKED = """
