@@ -391,6 +391,14 @@ def bench_gaga(dev: torch.device, repeats: int) -> Tuple[float, float, dict]:
     return ms / GAGA_CHUNK, spread / GAGA_CHUNK, util(work, ms, roofline.BF16_FLOP_PER_S)
 
 
+def build_kernels() -> None:
+    """Build and load every kernel's library: one nvcc each, all at once (a
+    library built before loads at once), so that no build runs inside a
+    timed call."""
+    with ThreadPoolExecutor(len(roofline.KERNELS)) as pool:
+        list(pool.map(lambda mod: mod.build(), roofline.KERNELS.values()))
+
+
 def run(sections: Iterable[str], device: Union[str, torch.device],
         config: Optional[ModelConfig] = None, repeats: int = 5) -> dict:
     """Run ``sections`` (names of ``KNOWN_SECTIONS``) on ``device`` and
@@ -399,9 +407,7 @@ def run(sections: Iterable[str], device: Union[str, torch.device],
     chosen = parse_sections(",".join(sections))
     dev = resolve_device(device)
     if dev.type == "cuda":
-        # one nvcc each, all at once (a library built before loads at once)
-        with ThreadPoolExecutor(len(roofline.KERNELS)) as pool:
-            list(pool.map(lambda mod: mod.build(), roofline.KERNELS.values()))
+        build_kernels()
     out = {"metric": "motion_frames_per_sec", "value": None, "unit": "frames/s",
            "device": device_info(dev)}
     model = None

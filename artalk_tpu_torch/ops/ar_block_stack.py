@@ -38,6 +38,8 @@ PackDict = Dict[str, torch.Tensor]
 
 # Launches of the CUDA kernel in this process; ar_block_stack() adds one per launch.
 LAUNCHES = 0
+# The same launches by the pack's weight type ("f32", "bf16", "int8").
+LAUNCHES_BY_PACK: Dict[str, int] = {}
 
 SOURCE = CSRC / "ar_block_stack.cu"
 HEADERS = (CSRC / "mma_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
@@ -45,6 +47,7 @@ BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh
 _LIB = None
 
 WEIGHT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+PACK_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 NOT_CO_RESIDENT = -1
 
@@ -155,6 +158,12 @@ def rounder(pack: PackDict):
 
 def pack_dtype(pack: PackDict) -> torch.dtype:
     return pack["wqkv"].dtype
+
+
+def count_pack(counts: Dict[str, int], pack: PackDict) -> None:
+    """Add one launch to ``counts`` under the pack's name."""
+    name = PACK_NAMES[pack_dtype(pack)]
+    counts[name] = counts.get(name, 0) + 1
 
 
 def weight_matmul(a: torch.Tensor, w: torch.Tensor, scales: Optional[torch.Tensor],
@@ -408,6 +417,7 @@ def _launch(x, ada, pack, k_cache, v_cache, start: int, num_heads: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     check_launch("ar_block_stack", _LIB.artalk_ar_block_stack(ctypes.byref(params), stream))
     LAUNCHES += 1
+    count_pack(LAUNCHES_BY_PACK, pack)
     return feats, k_new, v_new
 
 

@@ -25,11 +25,13 @@ from ..models import nn as tnn
 from ..parallel.sharding import whole
 from ._nvcc import CSRC, build_library, library_lock
 from .ar_block_stack import (WEIGHT_TYPES, PackDict, check_launch, check_pack, check_shapes,
-                             layer_mats, pack_dtype, pack_weights, ptr, rounder,
+                             count_pack, layer_mats, pack_dtype, pack_weights, ptr, rounder,
                              softmax_attend, weight_matmul)
 
 # Launches of the CUDA kernel in this process; encoder_block_stack() adds one per launch.
 LAUNCHES = 0
+# The same launches by the pack's weight type ("f32", "bf16", "int8").
+LAUNCHES_BY_PACK: dict = {}
 
 SOURCE = CSRC / "encoder_block_stack.cu"
 HEADERS = (CSRC / "mma_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
@@ -188,4 +190,5 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
     check_launch("encoder_block_stack",
                  _LIB.artalk_encoder_block_stack(ctypes.byref(params), stream))
     LAUNCHES += 1
+    count_pack(LAUNCHES_BY_PACK, pack)
     return y

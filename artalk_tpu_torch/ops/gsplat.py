@@ -154,6 +154,43 @@ def _slot_validity(mx, my, radius, opac, size: int):
     return tx, ty, valid
 
 
+def _rank_bits(n: int) -> int:
+    """Bits of an instance key that hold the depth rank of one of n gaussians."""
+    return max((n - 1).bit_length(), 1)
+
+
+def _depth_order(comp: Dict[str, torch.Tensor], opac: torch.Tensor):
+    """The stable depth argsort ``perm`` and, in its order, the rows the tile
+    slots need: (perm, mx, my, radius, opac)."""
+    perm = torch.argsort(comp["depth"], stable=True)
+    return perm, comp["mx"][perm], comp["my"][perm], comp["radius"][perm], opac[perm]
+
+
+def _sorted_keys(mx, my, radius, opac, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The valid slots' instance keys of depth-ordered gaussians, sorted by
+    ``sort_keys``, and each tile's segment: (sorted_key (P,) int32, offsets
+    (num_tiles + 1,) int32)."""
+    n = mx.shape[0]
+    tiles_x = size // GTILE_W
+    num_tiles = tiles_x * (size // GTILE_H)
+    rank_bits = _rank_bits(n)
+    tx, ty, valid = _slot_validity(mx, my, radius, opac, size)
+    # key = tile << rank_bits | depth rank, as in JAX: unique, since a
+    # gaussian never emits two slots into one tile; only the valid slots are
+    # sorted
+    rank = torch.arange(n, dtype=torch.int32, device=mx.device).expand(DUP, n)
+    tile = (ty * tiles_x + tx)[valid].to(torch.int32)
+    sorted_key = sort_keys((tile << rank_bits) | rank[valid])
+    bounds = torch.arange(num_tiles + 1, dtype=torch.int32, device=mx.device) << rank_bits
+    return sorted_key, torch.searchsorted(sorted_key, bounds).to(torch.int32)
+
+
+def _instances(perm: torch.Tensor, sorted_key: torch.Tensor) -> torch.Tensor:
+    """The gaussian of each sorted instance: its key's depth rank through
+    ``perm``, int32."""
+    return perm[sorted_key & ((1 << _rank_bits(perm.shape[0])) - 1)].to(torch.int32)
+
+
 def _build_instances(comp: Dict[str, torch.Tensor], opac: torch.Tensor, size: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tile-major, depth-minor instance lists. Returns (inst (P,) int32: the
@@ -161,23 +198,12 @@ def _build_instances(comp: Dict[str, torch.Tensor], opac: torch.Tensor, size: in
     instances are inst[offsets[t]:offsets[t + 1]], front to back by the
     rank of a stable depth argsort)."""
     n = comp["depth"].shape[0]
-    tiles_x = size // GTILE_W
-    num_tiles = tiles_x * (size // GTILE_H)
-    rank_bits = max((n - 1).bit_length(), 1)
-    if not (num_tiles + 1) < (1 << (31 - rank_bits)):
+    num_tiles = (size // GTILE_W) * (size // GTILE_H)
+    if not (num_tiles + 1) < (1 << (31 - _rank_bits(n))):
         raise ValueError(f"instance keys overflow int32: {num_tiles} tiles of {n} gaussians")
-    perm = torch.argsort(comp["depth"], stable=True)
-    tx, ty, valid = _slot_validity(comp["mx"][perm], comp["my"][perm],
-                                   comp["radius"][perm], opac[perm], size)
-    # key = tile << rank_bits | depth rank, as in JAX: unique, since a
-    # gaussian never emits two slots into one tile; only the valid slots are
-    # sorted
-    rank = torch.arange(n, dtype=torch.int32, device=perm.device).expand(DUP, n)
-    tile = (ty * tiles_x + tx)[valid].to(torch.int32)
-    sorted_key = sort_keys((tile << rank_bits) | rank[valid])
-    bounds = torch.arange(num_tiles + 1, dtype=torch.int32, device=perm.device) << rank_bits
-    offsets = torch.searchsorted(sorted_key, bounds).to(torch.int32)
-    return perm[sorted_key & ((1 << rank_bits) - 1)].to(torch.int32), offsets
+    perm, *rows = _depth_order(comp, opac)
+    sorted_key, offsets = _sorted_keys(*rows, size)
+    return _instances(perm, sorted_key), offsets
 
 
 def prepass(xyz, colors, opacities, scales, rotations, cam_matrix, focal: float = 12.0,

@@ -27,7 +27,7 @@ Usage::
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +113,20 @@ class StreamPool:
 
     # ------------------------------------------------------------------ tick
 
+    def device_step(self, audio: torch.Tensor, stepped: torch.Tensor
+                    ) -> Tuple[WindowState, torch.Tensor]:
+        """The tick's device work, on device tensors: one batched window step
+        of ``audio`` (capacity, window_samples), then the carry of each row
+        where ``stepped`` (capacity,) bool is False put back. Commits and
+        returns the new carry, with the motion (capacity, window, 106) on the
+        device. Counterpart of the JAX pool's jitted ``_masked_step``."""
+        new_state, motion = self.model.window_step(self._state, audio, self._styles)
+        m = stepped[:, None, None]
+        self._state = WindowState(
+            torch.where(m, new_state.prev_bits, self._state.prev_bits),
+            torch.where(m, new_state.prev_attn_feat, self._state.prev_attn_feat))
+        return self._state, motion
+
     def step(self, chunks: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
         """Advance the sessions in ``chunks`` by one 4-s window.
 
@@ -138,12 +152,8 @@ class StreamPool:
             n_valid[sid] = len(chunk)
         stepped = torch.zeros(self.capacity, dtype=torch.bool)
         stepped[list(chunks)] = True
-        stepped = stepped.to(self.device)[:, None, None]
-        new_state, motion = self.model.window_step(
-            self._state, torch.from_numpy(buf).to(self.device), self._styles)
-        self._state = WindowState(
-            torch.where(stepped, new_state.prev_bits, self._state.prev_bits),
-            torch.where(stepped, new_state.prev_attn_feat, self._state.prev_attn_feat))
+        _, motion = self.device_step(torch.from_numpy(buf).to(self.device),
+                                     stepped.to(self.device))
         host_motion = motion.cpu().numpy()
         return {sid: host_motion[sid, : math.ceil(n / self.sample_rate * self.fps)]
                 for sid, n in n_valid.items()}

@@ -6,8 +6,10 @@ StreamPool, the HTTP server, sampled decode, the speech -> gaussian-splat
 avatar (GAGAvatar) path, the alternate audio encoders (flash-attention
 wav2vec2, HuBERT, Mimi), the instance-key sort of the splat prepass, the
 debug point and texture renderers, the motion metrics, both training
-stages (and the train CLI), the window-step export and the parallel package
-(a device mesh on NCCL, sharded decode, training and frame-parallel render).
+stages (and the train CLI), the window-step export, the parallel package
+(a device mesh on NCCL, sharded decode, training and frame-parallel render),
+the port's bench and its measurement tools (the StreamPool curve after a
+check of the pool at B = 32, the HTTP load test, the stage profilers).
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
@@ -249,6 +251,36 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      over the run (the rasterizer, both block stacks, the splat and the sort
      launched at least once).
 
+ 35. the measurement tools (artalk_tpu_torch/tools/): first, StreamPool at
+     B = 32 (3200 rows a level at pn 100) right after phase 5 on its exact
+     engine and right after phase 9 on its int8 engine: 32 sessions with
+     their own audio stepped together twice, each also streamed alone at
+     batch 1. Exact: each window's decoded code bits agree with the batch-1
+     stream on >= POOL_BITS_AGREE. int8: the mean agreement with the
+     batch-1 streams >= POOL_BITS_AGREE; each window >= POOL_BITS_AGREE
+     against its batch-1 stream when both take the audio condition
+     computed alone at batch 1; each session equal to itself stepped alone
+     in a pool of 32 (bits >= POOL_BITS_AGREE, motions to 1e-5); both
+     kernels at B = 32 with the int8 packs (the encoder's with the bf16
+     pack too): each row within 1e-6 of the row alone, the launch against
+     its plain version on the same inputs within phase 6 and 7's limits
+     (AR feats AR_FEATS_TOL, k/v 2 bf16 ulps; encoder ENCODER_TOL); the
+     first op of the window step whose B = 32 row differs from the row
+     stepped alone printed. Rows crossed must fail every rule held; 10 AR
+     and 2 encoder launches in int8, none in exact. Then, after phase 34,
+     each tool's main at a reduced depth, its output echoed under "[tools]
+     <name> |": bench_streampool --sizes 1,8,32 --iters 3 (int8), and
+     --sizes 1,4 --iters 1 with float32 packs (ARTALK_AR_FUSED=1: the
+     kernels at B = 1 only, none at B = 4); bench_http_serving --clients 1
+     4 --windows 3 (int8); profile_pipeline --iters 3 (exact: the
+     rasterizer alone); profile_encoder --iters 3 --fused; profile_gsplat
+     --iters 5 (S3 equal to prepass bit for bit); profile_gaga --k 8. Each
+     tool's lines parse with finite times, and its kernel launches, the
+     block stacks' counted by pack (LAUNCHES_BY_PACK), equal what its run
+     makes (bounded for the HTTP ticks, which the clients' timing decides);
+     the kernels line lists them under "tool_launches", and the B = 32
+     kernel checks under "wide".
+
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
 """
@@ -259,7 +291,10 @@ import copy
 import contextlib
 import ctypes
 import dataclasses
+import importlib
+import io
 import json
+import re
 import math
 import os
 import socket
@@ -273,6 +308,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from artalk_tpu_torch import bench
@@ -286,7 +323,7 @@ from artalk_tpu_torch.models import mimi as tmimi
 from artalk_tpu_torch.models import nn as tnn
 from artalk_tpu_torch.models import wav2vec as wav2vec_mod
 from artalk_tpu_torch import export_model
-from artalk_tpu_torch.models.ar_model import BitwiseARModel, topk_topp_mask
+from artalk_tpu_torch.models.ar_model import BitwiseARModel, WindowState, topk_topp_mask
 from artalk_tpu_torch.models.bitwise_vae import BitwiseVAE
 from artalk_tpu_torch.models.hubert import HubertEncoder
 from artalk_tpu_torch.models.nn import no_tf32
@@ -435,6 +472,22 @@ TRAIN_CPU_RTOL = {"loss": 1e-6, "grad_norm": 1e-5}
 FUSED_LOSS_MARGIN = 2.0
 # phase 34: measurements per bench section (a spread prints, the phase stays short)
 BENCH_REPEATS = 2
+# phase 35: the widest pool of the tools' curve, and each tool's reduced run:
+# (tool, argv, precision environment)
+POOL_WIDE = 32
+TOOL_RUNS = (
+    ("bench_streampool", ["--sizes", "1,8,32", "--iters", "3"],
+     {"ARTALK_AR_PRECISION": "int8", "ARTALK_AR_FUSED": "1"}),
+    ("bench_streampool", ["--sizes", "1,4", "--iters", "1"], {"ARTALK_AR_FUSED": "1"}),
+    ("bench_http_serving", ["--clients", "1", "4", "--windows", "3"], {}),
+    ("profile_pipeline", ["--iters", "3"], {}),
+    ("profile_encoder", ["--iters", "3", "--fused"], {}),
+    ("profile_gsplat", ["--iters", "5"], {}),
+    ("profile_gaga", ["--k", "8"], {}),
+)
+PACKS = ("f32", "bf16", "int8")
+# a timed line of a tool: its label, then ms (ms/tick, ms/chunk)
+TOOL_LINE = re.compile(r"^\s*(\S.*?)\s+(-?[\d.]+|nan|inf) ms(/tick|/chunk)?\b", re.M)
 
 # tests/test_ar_model.py's CFG, the config behind tests/fixtures/golden_small.npz
 GOLDEN_SMALL_CFG = tcfg.ModelConfig(
@@ -463,6 +516,8 @@ def zero_launches() -> None:
     """Set every kernel's launch count to 0."""
     rasterizer.LAUNCHES = ar_stack.LAUNCHES = enc_stack.LAUNCHES = gsplat.LAUNCHES = 0
     attention.LAUNCHES = sort.LAUNCHES = sort.CUDA_LAUNCHES = 0
+    ar_stack.LAUNCHES_BY_PACK.clear()
+    enc_stack.LAUNCHES_BY_PACK.clear()
 
 
 def launch_counts() -> dict:
@@ -2771,6 +2826,364 @@ def phase_bench() -> dict:
     return launches
 
 
+class GivenConditions:
+    """Replaces ``model.audio_condition`` while in use: its calls return
+    ``conds`` in turn, whatever audio they are given. Yields the number of
+    calls made."""
+
+    def __init__(self, model, conds: list):
+        self.model, self.conds, self.calls = model, list(conds), []
+
+    def __enter__(self):
+        def given(audio):
+            self.calls.append(audio.shape[0])
+            return self.conds[len(self.calls) - 1]
+
+        self.model.audio_condition = given
+        return self.calls
+
+    def __exit__(self, *exc):
+        del self.model.audio_condition
+
+
+class FirstRowDifference(TorchDispatchMode):
+    """Without ``ref``: records every tensor an op returns (factory ops left
+    out: a kernel bound through ctypes fills them after they return). With
+    ``ref``, such a record at batch 1: finds the first op whose output, at a
+    larger batch, differs in row ``row`` from the record at the same op."""
+
+    FACTORIES = ("empty", "empty_like", "empty_strided", "new_empty")
+
+    def __init__(self, ref: "FirstRowDifference" = None, row: int = 0):
+        super().__init__()
+        self.ref, self.row, self.names, self.outs, self.first = ref, row, [], [], None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name in self.FACTORIES:
+            return out
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor) or t.ndim == 0:
+                continue
+            i = len(self.names)
+            self.names.append(name)
+            if self.ref is None:
+                self.outs.append(t.detach().clone())
+            elif self.first is None and i < len(self.ref.names):
+                want = self.ref.outs[i]
+                if self.ref.names[i] != name:
+                    self.first = (i, name, "the ops differ from here on")
+                elif (want.shape[0] == 1 and t.shape[0] > self.row
+                      and t.shape[1:] == want.shape[1:]
+                      and not torch.equal(t[self.row:self.row + 1], want)):
+                    diff = (t[self.row:self.row + 1].double() - want.double()).abs().max()
+                    self.first = (i, name, f"output {tuple(t.shape)}, row max abs "
+                                           f"difference {diff.item():.3g}")
+        return out
+
+
+def first_divergent_op(model, chunks: np.ndarray, row: int) -> str:
+    """One window step of ``chunks`` (B, window_samples) from the pool's
+    fresh carry, under FirstRowDifference against row ``row`` stepped alone:
+    the first op whose output row differs, named with the ops before it."""
+    dev = model.pos_embed.device
+    null = model.encode_style(None)
+    fresh = model.initial_state(null, batch_size=1)
+    b = len(chunks)
+    wide = WindowState(*(t.repeat(b, *([1] * (t.ndim - 1))) for t in fresh))
+    one, many, styles = (torch.from_numpy(chunks[row:row + 1]).to(dev),
+                         torch.from_numpy(chunks).to(dev), null.repeat(b, 1, 1))
+    with torch.no_grad():
+        with FirstRowDifference() as ref:
+            model.window_step(fresh, one, null)
+        with FirstRowDifference(ref, row) as probe:
+            model.window_step(wide, many, styles)
+    if probe.first is None:
+        return f"none of {len(probe.names)} op outputs"
+    i, name, what = probe.first
+    return f"op {i} of {len(probe.names)}, aten.{name} ({what}; after {probe.names[max(0, i - 4):i]})"
+
+
+def pool_ticks(model, audio: list, ticks: int) -> dict:
+    """A fresh StreamPool of len(audio) sessions stepped together for
+    ``ticks`` ticks: per session, (motions, decoded code bits) per window."""
+    from artalk_tpu_torch.serving import StreamPool
+
+    pool = StreamPool(model, max_sessions=len(audio))
+    sids = [pool.open_session() for _ in audio]
+    got = {sid: [] for sid in sids}
+    with DecodedBits(model) as calls:
+        for t in range(ticks):
+            out = pool.step({sid: audio[sid][t] for sid in sids})
+            for sid in sids:
+                got[sid].append((out[sid], calls[-1][sid]))
+    return got
+
+
+def phase_pool_wide(engine: ARTAvatarInferEngine) -> dict:
+    """Phase 35, first part: StreamPool at B = POOL_WIDE, the widest batch of
+    the tools' curve (3200 rows a level at pn 100), on phase 5's exact engine
+    and on phase 9's int8 engine. Every session has its own audio and all
+    are stepped together for two ticks; each is also streamed alone at
+    batch 1 (engine.stream). Exact: each window's decoded code bits must
+    agree with the batch-1 stream on at least POOL_BITS_AGREE. int8, where
+    greedy bits flip with the rounding of the plain parts at another batch
+    size: the mean agreement with the batch-1 streams must reach
+    POOL_BITS_AGREE; each window must agree on POOL_BITS_AGREE with its
+    batch-1 stream when both take the audio condition computed alone at
+    batch 1 (the pool and the streams otherwise unchanged); each row must
+    equal the session stepped alone in a pool of the same capacity (bits
+    on POOL_BITS_AGREE, motions to 1e-5, phase 9's isolation rule); both
+    kernels at B = POOL_WIDE pass ``wide_kernel_rows``. The first op whose
+    row differs from the row stepped alone is printed. Rows crossed (each
+    session against the next one's reference) must fail every rule held.
+    Checked before any tool prints a time."""
+    model = engine.model
+    int8 = model.cfg.int8_ar
+    dev = model.pos_embed.device
+    ws = model.window_samples
+    rng = np.random.default_rng(35)
+    audio = [[(rng.standard_normal(ws) * 0.1).astype(np.float32) for _ in range(2)]
+             for _ in range(POOL_WIDE)]
+    sids = range(POOL_WIDE)
+    zero_launches()
+    runs = {"stream": pool_ticks(model, audio, 2)}
+    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    refs = {"stream": [stream_windows(engine, audio[sid]) for sid in sids]}
+    if int8:
+        runs["alone"] = runs["stream"]
+        refs["alone"] = [alone_in_pool(model, audio[sid], POOL_WIDE) for sid in sids]
+        with torch.no_grad():
+            conds = [[model.audio_condition(torch.from_numpy(c[None]).to(dev)) for c in chunks]
+                     for chunks in audio]
+        wide = [torch.cat([conds[sid][t] for sid in sids]) for t in range(2)]
+        with GivenConditions(model, wide) as calls:
+            runs["given"] = pool_ticks(model, audio, 2)
+        refs["given"] = []
+        for sid in sids:
+            with GivenConditions(model, conds[sid]) as one:
+                refs["given"].append(stream_windows(engine, audio[sid]))
+            calls += one
+        if calls != [POOL_WIDE] * 2 + [1] * (2 * POOL_WIDE):
+            raise AssertionError(f"[pool wide] audio_condition calls {calls}")
+        rows = wide_kernel_rows(model)
+    agree = {name: [bits_agree(g, w) for sid in sids for g, w in zip(runs[name][sid], r[sid])]
+             for name, r in refs.items()}
+    crossed = {name: max(bits_agree(g, w) for sid in sids
+                         for g, w in zip(runs[name][sid], r[(sid + 1) % POOL_WIDE]))
+               for name, r in refs.items()}
+    held = ["alone", "given"] if int8 else ["stream"]
+    iso_err = max(float(np.abs(g[0] - w[0]).max())
+                  for sid in sids for g, w in zip(runs[held[0]][sid], refs[held[0]][sid]))
+    mean = float(np.mean(agree["stream"]))
+    print(f"[pool wide] {'int8' if int8 else 'exact'}, B = {POOL_WIDE}, 2 ticks: code bits "
+          "agreeing per window with each session streamed alone at batch 1: least "
+          f"{min(agree['stream']):.4f}, mean {mean:.4f}"
+          + (f"; both given the condition computed alone: least {min(agree['given']):.4f}; "
+             f"with the session stepped alone in a pool of {POOL_WIDE}: least "
+             f"{min(agree['alone']):.4f}" if int8 else "")
+          + f"; motions max abs err against the {held[0]} run {iso_err:.3g}; held: per window "
+          f"{held}" + (", the stream's mean" if int8 else "") + f" (limit {POOL_BITS_AGREE}); "
+          f"planted fault rows crossed {crossed}; launches {launches}")
+    if int8:
+        row = int(np.argmin(agree["stream"][::2]))
+        print(f"[pool wide] int8: the first op of window 0 whose row {row} (the least agreeing "
+              f"with its stream) at B = {POOL_WIDE} differs from the row stepped alone: "
+              f"{first_divergent_op(model, np.stack([c[0] for c in audio]), row)}")
+        print("[pool wide] int8 kernels at B = " + str(POOL_WIDE) + ": " + "; ".join(
+            f"{k}: rows against each row alone {v['rows']:.3g}, against the plain version "
+            f"max abs err {v['plain']:.3g}"
+            + (f", k/v {v['kv_ulps']:.3g} bf16 ulps (limits {AR_FEATS_TOL}, 2)" if "kv_ulps" in v
+               else f", {v['of_bound']:.3f} of ENCODER_TOL's bound") for k, v in rows.items()))
+    low = {name: min(agree[name]) for name in held if min(agree[name]) < POOL_BITS_AGREE}
+    if low or (int8 and mean < POOL_BITS_AGREE):
+        raise AssertionError(f"StreamPool at B = {POOL_WIDE}: least share of a window's code "
+                             f"bits agreeing {low}, mean with the streams {mean:.4f} (limit "
+                             f"{POOL_BITS_AGREE})")
+    if int8 and iso_err > 1e-5:
+        raise AssertionError(f"StreamPool at B = {POOL_WIDE}: sessions interfere, {iso_err:.3g}")
+    if int8:
+        off = {k: v for k, v in rows.items()
+               if v["rows"] > 1e-6 or v.get("kv_ulps", 0.0) > 2 or v.get("of_bound", 0.0) > 1.0
+               or (k.startswith("ar/") and v["plain"] > AR_FEATS_TOL)}
+        if off:
+            raise AssertionError(f"the block stacks at B = {POOL_WIDE}: {off}")
+    if any(c >= POOL_BITS_AGREE for c in crossed.values()):
+        raise AssertionError(f"the wide pool's bits checks let crossed rows pass: {crossed}")
+    want = ({"ar": 2 * len(model.patch_nums), "encoder": 2} if int8
+            else {"ar": 0, "encoder": 0})
+    if launches != want:
+        raise AssertionError(f"StreamPool at B = {POOL_WIDE}: launches {launches}, want {want}")
+    return {"agree": {name: min(agree[name]) for name in held}, "stream_agree": mean,
+            "launches": launches, "kernels": rows if int8 else {}}
+
+
+def alone_in_pool(model, chunks: list, capacity: int) -> list:
+    """One session stepped alone in a fresh pool of ``capacity``: (motions,
+    decoded code bits) per chunk."""
+    from artalk_tpu_torch.serving import StreamPool
+
+    pool = StreamPool(model, max_sessions=capacity)
+    sid = pool.open_session()
+    with DecodedBits(model) as calls:
+        return [(pool.step({sid: chunk})[sid], calls[-1][sid]) for chunk in chunks]
+
+
+def wide_kernel_rows(model) -> dict:
+    """Phase 35: both block-stack kernels at B = POOL_WIDE with the int8
+    engine's packs, and the encoder's with the bf16 pack too (profile_encoder
+    runs it at 8 windows), on seeded inputs: each row against the same row
+    launched alone (phase 6 and 7's row rule), and the whole launch against
+    its plain version on the same inputs (phase 6 and 7's limits). Returns
+    per "<kernel>/<pack>": "rows", the rows' max abs difference from alone;
+    "plain", the max abs error against the plain version (the AR stack's
+    feats); and "kv_ulps", the AR stack's k/v in bf16 ulps, or "of_bound",
+    the encoder's share of ENCODER_TOL's bound."""
+    out = {}
+    ar = {"rows": 0.0, "plain": 0.0, "kv_ulps": 0.0}
+    pack = model.fused_pack
+    for level in range(len(model.patch_nums)):
+        x, ada, kc, vc, start = ar_inputs(model, POOL_WIDE, level, torch.bfloat16,
+                                          seed=350 + level)
+        args = dict(start=start, num_heads=model.num_heads)
+        got = ar_stack.ar_block_stack(x, ada, pack, kc, vc, **args)
+        want = ar_stack.ar_block_stack_plain(x, ada, pack, kc, vc, **args)
+        ar["plain"] = max(ar["plain"], (got[0] - want[0]).abs().max().item())
+        ar["kv_ulps"] = max(ar["kv_ulps"], *(bf16_ulps_of_max(g, w)
+                                             for g, w in zip(got[1:], want[1:])))
+        del want
+        for r in range(POOL_WIDE):
+            one = ar_stack.ar_block_stack(x[r:r + 1], ada[:, r:r + 1].contiguous(), pack,
+                                          kc[:, r:r + 1].contiguous(),
+                                          vc[:, r:r + 1].contiguous(), **args)
+            ar["rows"] = max(ar["rows"], (one[0] - got[0][r:r + 1]).abs().max().item(),
+                             *((o.float() - g[:, r:r + 1].float()).abs().max().item()
+                               for o, g in zip(one[1:], got[1:])))
+    out[f"ar/{ar_stack.PACK_NAMES[ar_stack.pack_dtype(pack)]}"] = ar
+    x = encoder_input(model, POOL_WIDE)
+    heads = model.cfg.wav2vec.num_attention_heads
+    for pack in (model.fused_audio_pack, model.audio_encoder.pack_fused(torch.bfloat16)):
+        name = ar_stack.PACK_NAMES[ar_stack.pack_dtype(pack)]
+        tol = ENCODER_TOL[name]
+        got = enc_stack.encoder_block_stack(x, pack, num_heads=heads)
+        want = enc_stack.encoder_block_stack_plain(x, pack, num_heads=heads)
+        out[f"encoder/{name}"] = {
+            "rows": max((enc_stack.encoder_block_stack(x[r:r + 1], pack, num_heads=heads)
+                         - got[r:r + 1]).abs().max().item() for r in range(POOL_WIDE)),
+            "plain": (got - want).abs().max().item(),
+            "of_bound": ((got - want).abs() / (tol + tol * want.abs())).max().item()}
+    return out
+
+
+def tool_launches() -> dict:
+    """Every kernel's launches; the block stacks' also by pack ("ar/int8")."""
+    return {"rasterize": rasterizer.LAUNCHES, "ar": ar_stack.LAUNCHES,
+            "encoder": enc_stack.LAUNCHES, "gsplat": gsplat.LAUNCHES, "sort": sort.LAUNCHES,
+            "flash": attention.LAUNCHES,
+            **{f"ar/{p}": ar_stack.LAUNCHES_BY_PACK.get(p, 0) for p in PACKS},
+            **{f"encoder/{p}": enc_stack.LAUNCHES_BY_PACK.get(p, 0) for p in PACKS}}
+
+
+def want_tool_launches(name: str, argv: list, env: dict, launches: dict) -> dict:
+    """The launches a tool's run makes on the card (the production config:
+    5 AR launches a window step, one encoder launch a window step or call),
+    by kernel and by pack, zero for every kernel not named. The HTTP ticks
+    depend on when the clients' chunks arrive: there the AR launches must be
+    5 per encoder launch, and the ticks between one per timed chunk of a
+    batch and one per chunk."""
+    levels = len(tcfg.ModelConfig().vae.patch_nums)
+    pack = {"int8": "int8", "fast": "bf16"}.get(env.get("ARTALK_AR_PRECISION"), "f32")
+
+    def flag(name: str) -> str:
+        return argv[argv.index(name) + 1]
+
+    want = dict.fromkeys(launches, 0)
+    if name == "bench_streampool":
+        sizes = [int(b) for b in flag("--sizes").split(",")]
+        calls = 1 + int(flag("--iters"))       # the warm-up step, then the timed ones
+        # float32 packs: the AR stack at B <= 2, the encoder's at B = 1
+        want[f"ar/{pack}"] = levels * calls * sum(1 for b in sizes if pack != "f32" or b <= 2)
+        want[f"encoder/{pack}"] = calls * sum(1 for b in sizes if pack != "f32" or b == 1)
+    elif name == "bench_http_serving":
+        clients = [int(c) for c in argv[argv.index("--clients") + 1:argv.index("--windows")]]
+        windows = int(flag("--windows"))
+        ticks = launches["encoder"]
+        if not (sum(1 + windows for n in clients) <= ticks <= sum(n * (1 + windows)
+                                                                   for n in clients)):
+            raise AssertionError(f"[tools] bench_http_serving: {ticks} ticks for clients "
+                                 f"{clients} x {1 + windows} chunks")
+        want["ar/int8"], want["encoder/int8"] = levels * ticks, ticks   # --precision int8
+    elif name == "profile_pipeline":
+        want["rasterize"] = 25 * (1 + int(flag("--iters")))
+    elif name == "profile_encoder":
+        want["encoder/bf16"] = want["encoder/int8"] = 1 + int(flag("--iters"))
+    elif name == "profile_gsplat":
+        calls = 1 + int(flag("--iters"))
+        want["gsplat"] = calls                         # S4
+        want["sort"] = 3 * calls + 2                   # S2-S4, prepass and the S3 check
+    elif name == "profile_gaga":
+        from artalk_tpu_torch.tools import profile_gaga
+        frames = (1 + profile_gaga.ITERS) * int(flag("--k"))
+        want["gsplat"] = 3 * frames                    # full, no-SR, full-bf16
+        want["sort"] = 3 * frames + 1                  # and frame 0's instance count
+    for kernel in ("ar", "encoder"):
+        want[kernel] = sum(want[f"{kernel}/{p}"] for p in PACKS)
+    return want
+
+
+def phase_tools() -> dict:
+    """Phase 35: each tool's main on the card at a reduced depth (TOOL_RUNS),
+    the launch counts set to 0 just before and read just after it. Its
+    output is echoed; every timed line must parse with a finite time, and
+    its launches, the block stacks' by pack, must equal
+    ``want_tool_launches``. Returns each run's launches, keyed "<tool>
+    <argv>"."""
+    out = {}
+    for name, argv, env in TOOL_RUNS:
+        module = importlib.import_module(f"artalk_tpu_torch.tools.{name}")
+        tag = f"{name} {' '.join(argv)}"
+        buf = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = bench.with_env(env, lambda: module.main(argv))
+        seconds = time.perf_counter() - t0
+        launches = tool_launches()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"[tools] {name} | {line}")
+        timed = TOOL_LINE.findall(text)
+        print(f"[tools] {tag}{f' {env}' if env else ''}: {seconds:.1f} s, {len(timed)} timed "
+              f"lines, launches {launches}")
+        if not text.startswith("device: ") or not timed or not all(
+                math.isfinite(float(v)) for _, v, _ in timed):
+            raise AssertionError(f"[tools] {tag}: output does not parse:\n{text}")
+        if name == "profile_gsplat" and not result:
+            raise AssertionError("[tools] profile_gsplat: S3 differs from prepass")
+        want = want_tool_launches(name, argv, env, launches)
+        if launches != want:
+            raise AssertionError(f"[tools] {tag}: launches {launches}, want {want}")
+        out[tag] = launches
+        torch.cuda.empty_cache()
+    return out
+
+
+def under(tools: dict, kernel: str) -> dict:
+    """Phase 35's launches of ``kernel`` ("ar/int8" for a block stack's
+    pack) by tool run, as counted, for the kernels line."""
+    return {tag: launches[kernel] for tag, launches in tools.items() if launches[kernel]}
+
+
+def wide_entry(rows: dict, kernel: str):
+    """A block stack's phase 35 check at B = POOL_WIDE for the kernels line,
+    or None where the pack was not run there."""
+    if kernel not in rows:
+        return None
+    return {"batch": POOL_WIDE, **{k: v for k, v in rows[kernel].items() if k != "plain"},
+            "max_abs_err": rows[kernel]["plain"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2784,6 +3197,7 @@ def main() -> int:
     phase_golden(dev)
     raster_launches, exact_bits, exact_ms, audio, motions, full_engine = phase_full(dev)
     sampled = {"exact": phase_sampled(full_engine, audio, "exact")}
+    pool_wide = {"exact": phase_pool_wide(full_engine)}
     del full_engine
     torch.cuda.empty_cache()
 
@@ -2793,6 +3207,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         engine, modes[mode] = phase_mode(mode, dev, exact_bits)
     pool = phase_pool(engine)           # the int8 engine, the last mode
+    pool_wide["int8"] = phase_pool_wide(engine)
     served = phase_server(engine, audio)
     sampled["int8"] = phase_sampled(engine, audio, "int8")
     model = engine.model
@@ -2845,6 +3260,8 @@ def main() -> int:
                               modes["int8"]["bits"])
     torch.cuda.empty_cache()
     phase_bench()
+    torch.cuda.empty_cache()
+    tools = phase_tools()
     print(f"[train summary] {smi}: " + "; ".join(
         f"{tag} {v['ms_step']:.3f} ms/step at batch {TRAIN_BATCH}, peak "
         f"{v['peak_gib']:.2f} GiB, bound {v['bound_ms']:.3f} ms ({v['bound_by']})"
@@ -2852,7 +3269,10 @@ def main() -> int:
 
     print(f"[summary] {smi}: inference ms/window by mode "
           + ", ".join(f"{m} {v['ms_window']:.2f}" for m, v in modes.items())
-          + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick; HTTP chunk request ms at 1 / 2 "
+          + f"; StreamPool int8 {pool['ms_tick']:.2f} ms/tick (B = {POOL_WIDE}, least code "
+          f"bits agreeing: exact {pool_wide['exact']['agree']}, int8 "
+          f"{pool_wide['int8']['agree']}, int8's mean with batch-1 streams "
+          f"{pool_wide['int8']['stream_agree']:.4f}); HTTP chunk request ms at 1 / 2 "
           f"sessions {served['ms_chunk_1']:.2f} / {served['ms_chunk_2']:.2f}, /v1/motion "
           f"{served['ms_motion']:.1f} ms; sampled launches int8 {sampled['int8']['launches']}"
           "; GAGAvatar ms/frame "
@@ -2868,7 +3288,7 @@ def main() -> int:
                 "source": "artalk_tpu_torch/csrc/rasterizer.cu",
                 "replaces": "artalk_tpu/ops/rasterizer.py:196",
                 "launches": raster_launches, "parallel_launches": parallel["rasterize"],
-                **kernel}]
+                "tool_launches": under(tools, "rasterize"), **kernel}]
     for mode, pack in PACK_OF_MODE.items():
         name = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}[pack]
         kernels.append({"name": f"ar_block_stack/{name}", "route": "cuda",
@@ -2876,12 +3296,16 @@ def main() -> int:
                         "replaces": "artalk_tpu/ops/ar_block_stack.py:350",
                         "launches": modes[mode]["launches"]["ar"],
                         "parallel_launches": parallel.get(f"ar/{name}", 0),
+                        "tool_launches": under(tools, f"ar/{name}"),
+                        "wide": wide_entry(pool_wide["int8"]["kernels"], f"ar/{name}"),
                         "max_abs_err": ar_err[name], **times[f"ar/{name}"]})
         kernels.append({"name": f"encoder_block_stack/{name}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/encoder_block_stack.cu",
                         "replaces": "artalk_tpu/ops/encoder_block_stack.py:339",
                         "launches": modes[mode]["launches"]["encoder"],
                         "parallel_launches": parallel.get(f"encoder/{name}", 0),
+                        "tool_launches": under(tools, f"encoder/{name}"),
+                        "wide": wide_entry(pool_wide["int8"]["kernels"], f"encoder/{name}"),
                         **train_launches.get(name, {
                             "train_launches": 0, "train_max_abs_err": None,
                             "train_condition_max_abs_err": None}),
@@ -2890,17 +3314,19 @@ def main() -> int:
         kernels.append({"name": f"gsplat/{colors}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/gsplat.cu",
                         "replaces": "artalk_tpu/ops/gsplat.py:638", "parallel_launches": 0,
+                        "tool_launches": under(tools, "gsplat") if colors == "f32" else {},
                         **{k: v for k, v in splat[colors].items() if k != "ms_frame"}})
     for tag, mode in (("f32", "exact"), ("bf16", "fast")):
         kernels.append({"name": f"flash_attention/{tag}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/flash_attention.cu",
                         "replaces": "artalk_tpu/ops/attention.py:97",
                         "launches": flash[mode]["launches"]["flash"], "parallel_launches": 0,
+                        "tool_launches": under(tools, "flash"),
                         "max_abs_err": flash_err[tag], **flash_times[tag]})
     kernels.append({"name": "sort_keys", "route": "cuda",
                     "source": "artalk_tpu_torch/csrc/sort.cu",
                     "replaces": "tools/exp_pallas_sort.py:106", "launches": gaga_sorts,
-                    "parallel_launches": 0,
+                    "parallel_launches": 0, "tool_launches": under(tools, "sort"),
                     "max_abs_err": sort_err, **sort_times})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

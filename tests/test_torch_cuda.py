@@ -114,10 +114,11 @@ def test_ar_block_stack_matches_plain(cuda, mode):
     cache_dtype = torch.float32 if mode == "f32" else torch.bfloat16
     for pn, start in ((1, 40), (5, 41), (25, 46), (50, 46)):
         args = [t.to(cuda) for t in _ar_inputs(3, pn, start, cache_dtype=cache_dtype)]
-        before = tab.LAUNCHES
+        before, by_pack = tab.LAUNCHES, dict(tab.LAUNCHES_BY_PACK)
         got = tab.ar_block_stack(args[0], args[1], pack, args[2], args[3], start=start,
                                  num_heads=4)
         assert tab.LAUNCHES == before + 1
+        assert tab.LAUNCHES_BY_PACK[mode] == by_pack.get(mode, 0) + 1
         want = tab.ar_block_stack_plain(args[0], args[1], pack, args[2], args[3], start=start,
                                         num_heads=4)
         torch.cuda.synchronize()
@@ -170,9 +171,10 @@ def test_encoder_block_stack_matches_plain(cuda, mode, tol):
         norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=gen))
     pack = teb.pack_encoder_weights(layers.to(cuda), dtype=PACK_DTYPES[mode])
     x = (torch.randn((2, 199, 256), generator=gen) * 0.5).to(cuda)
-    before = teb.LAUNCHES
+    before, by_pack = teb.LAUNCHES, dict(teb.LAUNCHES_BY_PACK)
     got = teb.encoder_block_stack(x, pack, num_heads=4)
     assert teb.LAUNCHES == before + 1
+    assert teb.LAUNCHES_BY_PACK[mode] == by_pack.get(mode, 0) + 1
     want = teb.encoder_block_stack_plain(x, pack, num_heads=4)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)

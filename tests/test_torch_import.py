@@ -38,8 +38,10 @@ def test_import_leaves_jax_out():
     flash-attention wrapper, HuBERT, Mimi, the key sort, the debug renderers,
     the evaluation metrics, the native media runtime, the HTTP server, the
     checkpoint converter, the web UI, the metrics registry, the training
-    package, the window-step export, the parallel package and the bench
-    with its timing and roofline helpers are among them."""
+    package, the window-step export, the parallel package, the bench
+    with its timing and roofline helpers, and the measurement tools
+    (``tools/``: the pool curve, the HTTP load test, the four stage
+    profilers) are among them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -58,7 +60,11 @@ def test_import_leaves_jax_out():
                    "artalk_tpu_torch.export_model", "artalk_tpu_torch.parallel.mesh",
                    "artalk_tpu_torch.parallel.sharding", "artalk_tpu_torch.parallel.render",
                    "artalk_tpu_torch.parallel.distributed", "artalk_tpu_torch.bench",
-                   "artalk_tpu_torch.utils.timing", "artalk_tpu_torch.utils.roofline"} <= imported
+                   "artalk_tpu_torch.utils.timing", "artalk_tpu_torch.utils.roofline",
+                   "artalk_tpu_torch.tools"} | {
+                       f"artalk_tpu_torch.tools.{m}" for m in (
+                           "bench_streampool", "bench_http_serving", "profile_pipeline",
+                           "profile_encoder", "profile_gsplat", "profile_gaga")} <= imported
 
 
 _IMPORT_BLOCKED = """
