@@ -29,6 +29,11 @@ class VAEConfig:
         """Frames per AR window = finest scale."""
         return int(self.patch_nums[-1])
 
+    @property
+    def total_tokens(self) -> int:
+        """Sum of all scales = AR slots per window (181 for the default schedule)."""
+        return int(sum(self.patch_nums))
+
     @classmethod
     def from_json_dict(cls, d: dict) -> "VAEConfig":
         return cls(
@@ -39,6 +44,17 @@ class VAEConfig:
             hidden_dim=d.get("T_HIDDEN_DIM", 512),
             patch_nums=tuple(d.get("V_PATCH_NUMS", (1, 5, 25, 50, 100))),
         )
+
+    def to_json_dict(self) -> dict:
+        """The reference's ``VAE_CONFIG`` form (``from_json_dict``'s inverse)."""
+        return {
+            "MOTION_DIM": self.motion_dim,
+            "V_CODE_DIM": self.code_dim,
+            "T_DEPTH": self.depth,
+            "T_NUM_HEADS": self.num_heads,
+            "T_HIDDEN_DIM": self.hidden_dim,
+            "V_PATCH_NUMS": list(self.patch_nums),
+        }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +84,15 @@ class ARConfig:
             prev_ratio=d.get("PREV_RATIO", 1),
             audio_encoder=d.get("AUDIO_ENCODER", "wav2vec"),
         )
+
+    def to_json_dict(self) -> dict:
+        """The reference's ``AR_CONFIG`` form (the widths it fixes are not in it)."""
+        return {
+            "T_DEPTH": self.depth,
+            "T_NUM_HEADS": self.num_heads,
+            "PREV_RATIO": self.prev_ratio,
+            "AUDIO_ENCODER": self.audio_encoder,
+        }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +217,10 @@ class ModelConfig:
             ar=ARConfig.from_json_dict(d.get("AR_CONFIG", {})),
             vae=VAEConfig.from_json_dict(d.get("VAE_CONFIG", {})),
         )
+
+    def to_json_dict(self) -> dict:
+        """The reference's ``config.json`` form: ``load_config`` reads it back."""
+        return {"AR_CONFIG": self.ar.to_json_dict(), "VAE_CONFIG": self.vae.to_json_dict()}
 
 
 def load_config(path: str) -> ModelConfig:

@@ -257,4 +257,16 @@ class ARTAvatarInferEngine:
         audio = np.asarray(audio, np.float32).reshape(-1)
         audio = audio[: int(t / self.cfg.fps * self.cfg.sample_rate)]
         out_path = os.path.join(self.output_dir, f"{save_name}.mp4")
-        return write_video(frames, out_path, self.cfg.fps, audio, self.cfg.sample_rate)
+        return write_video(frames, out_path, self.cfg.fps, audio, self.cfg.sample_rate,
+                           pix_fmt="yuv420")
+
+    # ------------------------------------------------------------------- misc
+
+    @staticmethod
+    def smooth_motion_savgol(motion: np.ndarray,
+                             device: Union[str, torch.device] = "cuda") -> np.ndarray:
+        """Savitzky-Golay smoothing of a (..., T, C) motion array on ``device``
+        (the smoothing of ``inference``, without its dim zeroing); "cpu"
+        must be asked for."""
+        x = torch.from_numpy(np.asarray(motion, np.float32)).to(resolve_device(device))
+        return smooth_motion_savgol(x).cpu().numpy()

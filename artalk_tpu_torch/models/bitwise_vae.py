@@ -152,6 +152,10 @@ class BitwiseVAE(nn.Module):
     def bits_to_ms_feat(self, bits: torch.Tensor) -> torch.Tensor:
         return self.quantizer.bits_to_ms_feat(bits)
 
+    def bits_to_ar_feat(self, level: int, bits: torch.Tensor) -> torch.Tensor:
+        """Next-level AR decode input (``MultiScaleBSQ.bits_to_ar_feat``)."""
+        return self.quantizer.bits_to_ar_feat(level, bits)
+
     def reconstruct(self, prev_motion: torch.Tensor, this_motion: torch.Tensor,
                     dp_group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The differentiable autoencode pass of stage-1 training: returns

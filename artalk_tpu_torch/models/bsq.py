@@ -174,11 +174,18 @@ class MultiScaleBSQ:
     def bits_to_ms_feat(self, bits: torch.Tensor) -> torch.Tensor:
         """Per-scale AR inputs (B, sum(schedule[1:]), C): for each level l <
         last, the reconstruction through level l area-resized to schedule[l+1]."""
+        return self.bits_to_ar_feat(self.num_levels - 2, bits)
+
+    def bits_to_ar_feat(self, this_level: int, bits: torch.Tensor) -> torch.Tensor:
+        """Next-level AR inputs during decode: ``bits`` covers levels
+        0..this_level (sum(schedule[:this_level + 1]) tokens); returns the
+        concatenated inputs for levels 1..this_level + 1, each the
+        reconstruction through the level before it area-resized to its
+        scale (the decode loop in ``ar_model`` keeps the same sum as it goes)."""
         t = self.scale_schedule[-1]
-        levels = self._split_levels(bits)
         f_hat = torch.zeros(bits.shape[:-2] + (t, self.code_dim), device=bits.device)
         next_scales = []
-        for lvl in range(self.num_levels - 1):
-            f_hat = f_hat + resize_linear(bits_to_values(levels[lvl], self.code_dim), t)
+        for lvl, lvl_bits in enumerate(self._split_levels(bits)[: this_level + 1]):
+            f_hat = f_hat + resize_linear(bits_to_values(lvl_bits, self.code_dim), t)
             next_scales.append(resize_area(f_hat, self.scale_schedule[lvl + 1]))
         return torch.cat(next_scales, dim=-2)

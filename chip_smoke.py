@@ -9,7 +9,9 @@ debug point and texture renderers, the motion metrics, both training
 stages (and the train CLI), the window-step export, the parallel package
 (a device mesh on NCCL, sharded decode, training and frame-parallel render),
 the port's bench and its measurement tools (the StreamPool curve after a
-check of the pool at B = 32, the HTTP load test, the stage profilers).
+check of the pool at B = 32, the HTTP load test, the stage profilers), and
+the checkpoint and video modules (npz and sharded save / restore, the
+video writer's two pixel formats read back).
 
     python3 chip_smoke.py        # from the repository root, on a machine with one NVIDIA GPU
 
@@ -235,14 +237,17 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      tp=1), shard_params on a fresh seed-0 ModelConfig() AR model: its
      exact window-0 code bits equal phase 5's and, in the int8 mode (packs
      of the whole weights), phase 8's, with the int8 mode's 5 AR and 1
-     encoder launches counted (the kernels line's parallel_launches); its
+     encoder launches counted; its
      exact inference of phase 5's 3 windows in ms per window against the same
      model before sharding (DTensor's dispatch cost), motions within 1e-4;
      one AR step at batch TRAIN_BATCH, DropPath on, through the mesh-aware
      trainer against the plain step from the same weights and batch: loss
      and grad_norm within TRAIN_CPU_RTOL; render_frames_dp of phase 5's 250
      frames equal to renderer(verts) bit for bit with 250 rasterizer
-     launches. The group is destroyed at the end.
+     launches. The group is destroyed at the end. The kernels line's
+     parallel_launches are each kernel's launches (by pack) over the counted
+     windows and the render; the phase must launch no gsplat, sort or
+     attention kernel.
  34. the port's bench (artalk_tpu_torch.bench.run, every section, BENCH_REPEATS
      repeats; the sections' launch checks included): every key of every
      section finite and positive, no errors, every _mfu and _membw_frac in
@@ -280,6 +285,29 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      makes (bounded for the HTTP ticks, which the clients' timing decides);
      the kernels line lists them under "tool_launches", and the B = 32
      kernel checks under "wide".
+ 36. the checkpoint and video modules (utils/checkpoint.py, utils/video.py)
+     at full width: the seed-0 production engine's model through
+     save_params_npz (the checkpoint writer storing the arrays as they are:
+     deflating 2 GB on one host thread would take 105 s, and
+     tests/test_torch_checkpoint.py holds the deflated form) and
+     load_params(like=) into a model of NaNs, every tensor equal, the
+     restored model's exact and int8 window-0 code bits equal to phases 5
+     and 8's (5 AR and 1 encoder launch in int8); the same model sharded
+     on a (1, 1) NCCL mesh through save_params_sharded
+     (torch.distributed.checkpoint) and load_params_sharded into a sharded
+     NaN model, a plain one and, after the group is destroyed, a plain one
+     with no group, each equal; the seconds of each save and load beside
+     the card's name and power limit; then 1 s of phase 5's audio through
+     the engine on the restored model, its 25 mesh frames rendered (25
+     rasterizer launches) and written by write_video as yuv420
+     planes and as RGB, each read back by the port's readers (read_y4m +
+     yuv420p_to_rgb + the WAV, or read_video_npz): 25 frames, 25 fps, 16 kHz
+     audio of 16 000 samples, RGB within 3 of the rendered frames on 2x2-
+     constant blocks; get_video_info and read_all_video_frames read both
+     where PyAV is installed and raise their RuntimeError where it is not.
+     The kernels line's checkpoint_launches are each kernel's launches (by
+     pack) over the two windows, the inference and the render; the phase
+     must launch no gsplat, sort or attention kernel.
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -302,6 +330,7 @@ import subprocess
 import sys
 import threading
 import time
+import wave
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -335,6 +364,7 @@ from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
 from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.ops import sort
+from artalk_tpu_torch.ops.colorspace import rgb_to_yuv420p
 from artalk_tpu_torch.ops.resample1d import resize_area
 from artalk_tpu_torch.parallel import make_mesh, shard_params
 from artalk_tpu_torch.parallel.distributed import initialize_multihost
@@ -345,11 +375,14 @@ from artalk_tpu_torch.training import train, trainer
 from artalk_tpu_torch.utils.assets import load_or_synthesize_flame
 from artalk_tpu_torch.utils.metrics import GLOBAL_METRICS, device_trace
 from artalk_tpu_torch.utils import roofline
+from artalk_tpu_torch.utils.checkpoint import (load_params, load_params_sharded, save_params_npz,
+                                               save_params_sharded)
 from artalk_tpu_torch.utils.params import load_params_npz, params_from_flat
 from artalk_tpu_torch.utils.roofline import (FP32_FLOP_PER_S, HBM_BYTES_PER_S,
                                              SPLAT_COMPOSITE_FLOP, SPLAT_EVAL_FLOP)
 from artalk_tpu_torch.utils.timing import cuda_ms
-from artalk_tpu_torch.utils.video import read_y4m
+from artalk_tpu_torch.utils.video import (get_video_info, read_all_video_frames, read_video_npz,
+                                          read_y4m, write_video, yuv420p_to_rgb)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
@@ -2713,7 +2746,8 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
     plain step from the same weights and batch within TRAIN_CPU_RTOL; and
     render_frames_dp of phase 5's 250 frames bit for bit equal to the
     renderer's, with the rasterizer's launches counted. Destroys the group
-    at the end. Returns each kernel's launches in the phase."""
+    at the end. Returns each kernel's launches (by pack for the block
+    stacks) summed over the counted windows and the render."""
     info = initialize_multihost(coordinator_address=f"127.0.0.1:{free_port()}",
                                 num_processes=1, process_id=0)
     try:
@@ -2730,16 +2764,19 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
         model.requires_grad_(False)
 
         shard_params(model, mesh)
+        counted: dict = {}
         with torch.no_grad(), implicit_replication():
             zero_launches()
             sharded_motions, sharded_ms = timed_generate(model, audio, n)
             bits = window0_bits(model, audio)
             exact_launches = launch_counts()
+            add_launches(counted)
             model.cfg = bench.with_env(MODES["int8"], lambda: engine_mod._resolve_ar_precision(cfg))
             engine_mod.build_fused_packs(model)
             zero_launches()
             bits8 = window0_bits(model, audio)
             int8_launches = launch_counts()
+            add_launches(counted)
         model.cfg, model.fused_pack, model.fused_audio_pack = cfg, None, None
         sharded, sharded_step_ms = timed_ar_step(model, b, dev, mesh)
         rel = {k: abs(sharded[k] - plain[k]) / abs(plain[k]) for k in TRAIN_CPU_RTOL}
@@ -2764,6 +2801,7 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
             torch.cuda.synchronize(dev)
             render_ms = (time.perf_counter() - t0) * 1e3 / len(motions)
             raster = rasterizer.LAUNCHES
+            add_launches(counted)
             render_equal = torch.equal(frames, want)
         del want, frames
     finally:
@@ -2794,8 +2832,8 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
     if not render_equal or raster != len(motions):
         raise AssertionError(f"[parallel] render_frames_dp equal {render_equal}, "
                              f"{raster} rasterizer launches")
-    return {"rasterize": raster, "ar/int8": int8_launches["ar"],
-            "encoder/int8": int8_launches["encoder"]}
+    no_other_launches("parallel", counted)
+    return counted
 
 
 def phase_bench() -> dict:
@@ -3085,6 +3123,22 @@ def tool_launches() -> dict:
             **{f"encoder/{p}": enc_stack.LAUNCHES_BY_PACK.get(p, 0) for p in PACKS}}
 
 
+def add_launches(total: dict) -> dict:
+    """Add every kernel's launches since the last zero_launches()
+    (tool_launches, the block stacks' also by pack) into ``total``."""
+    for k, v in tool_launches().items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def no_other_launches(tag: str, total: dict) -> None:
+    """A phase that runs no GAGAvatar, sort or attention path must have
+    launched none of those kernels: the kernels line then gives each of
+    their rows the phase's whole count of the kernel, 0."""
+    if total["gsplat"] or total["sort"] or total["flash"]:
+        raise AssertionError(f"[{tag}] kernels launched off the path: {total}")
+
+
 def want_tool_launches(name: str, argv: list, env: dict, launches: dict) -> dict:
     """The launches a tool's run makes on the card (the production config:
     5 AR launches a window step, one encoder launch a window step or call),
@@ -3167,6 +3221,200 @@ def phase_tools() -> dict:
         out[tag] = launches
         torch.cuda.empty_cache()
     return out
+
+
+def nan_model(cfg: tcfg.ModelConfig, dev: torch.device) -> BitwiseARModel:
+    """A model for ``cfg`` on ``dev`` whose every float tensor is NaN: a
+    load that misses one leaves it unequal to anything."""
+    model = BitwiseARModel(cfg).to(dev)
+    for t in model.state_dict().values():
+        if t.is_floating_point():
+            t.fill_(float("nan"))
+    return model
+
+
+def unequal_tensors(model, want: dict) -> list:
+    """The state-dict keys of ``model`` whose tensor (taken whole) differs
+    from ``want``'s, and the keys of one the other lacks."""
+    got = model.state_dict()
+    return sorted(set(got) ^ set(want)) + [
+        k for k in got if k in want and not torch.equal(whole(got[k]), want[k])]
+
+
+def timed(fn) -> tuple:
+    """(fn(), seconds by the host clock around synchronised work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def read_back(path: str) -> dict:
+    """A video ``write_video`` wrote, read with the port's own readers: the
+    Y4M tier (frames through yuv420p_to_rgb, the sibling WAV's rate and
+    length), the .npz tier (read_video_npz), or, for an encoded video,
+    PyAV's readers where av is installed (lossy: ``lossless`` False)."""
+    if path.endswith(".y4m"):
+        planes, fps = read_y4m(path)
+        with wave.open(path[:-4] + ".wav") as f:
+            rate, samples = f.getframerate(), f.getnframes()
+        return {"rgb": yuv420p_to_rgb(planes), "fps": fps, "rate": rate, "samples": samples,
+                "lossless": True}
+    if path.endswith(".npz"):
+        rgb, fps, audio, rate = read_video_npz(path)
+        return {"rgb": rgb, "fps": fps, "rate": rate, "samples": len(audio), "lossless": True}
+    rgb, fps = read_all_video_frames(path)
+    info = get_video_info(path)
+    return {"rgb": rgb, "fps": fps, "rate": info["audio"]["sample_rate"], "samples": None,
+            "lossless": False}
+
+
+def phase_checkpoint(dev: torch.device, audio: np.ndarray, exact_bits: np.ndarray,
+                     int8_bits: np.ndarray, smi: str) -> dict:
+    """Phase 36: the checkpoint and video modules at full width. The seed-0
+    production engine's model through save_params_npz / load_params into a
+    NaN model (every tensor equal; the restored model's exact and int8 window-0
+    code bits equal phases 5 and 8's, with the int8 kernels' launches
+    counted); save_params_sharded of that model sharded on a (1, 1) NCCL
+    mesh, load_params_sharded into a sharded NaN model, a plain one, and
+    (after the group is destroyed) a plain one with no group, each equal;
+    then 1 s of audio through the engine on the restored model, 25 mesh
+    frames rendered (rasterizer launches counted) and written as yuv420
+    planes and as RGB by write_video, each read back by the port's readers
+    and checked (25 frames at 25 fps, 16 kHz audio of 16 000 samples, the
+    RGB within 3 of the rendered frames on 2x2-constant blocks), and the
+    PyAV readers run where av is installed, else raising their
+    RuntimeError. Returns each kernel's launches (by pack for the block
+    stacks) summed over the two windows, the engine's inference and the
+    render."""
+    cfg = tcfg.ModelConfig()
+    out_dir = os.path.join(ROOT, "render_results", "chip_smoke", "checkpoint")
+    engine = build_engine(dev, {}, cfg)
+    original = engine.model
+    want = {k: v.clone() for k, v in original.state_dict().items()}
+    npz = os.path.join(out_dir, "params.npz")
+    _, npz_save_s = timed(lambda: save_params_npz(original, npz))
+    restored, npz_load_s = timed(lambda: load_params(npz, like=nan_model(cfg, dev)))
+    bad = {"npz": unequal_tensors(restored, want)}
+    counted: dict = {}
+    with torch.no_grad():
+        zero_launches()
+        bits = window0_bits(restored, audio)
+        exact_launches = launch_counts()
+        add_launches(counted)
+        restored.cfg = bench.with_env(MODES["int8"],
+                                      lambda: engine_mod._resolve_ar_precision(cfg))
+        engine_mod.build_fused_packs(restored)
+        zero_launches()
+        bits8 = window0_bits(restored, audio)
+        int8_launches = launch_counts()
+        add_launches(counted)
+    restored.cfg, restored.fused_pack, restored.fused_audio_pack = cfg, None, None
+
+    sharded_dir = os.path.join(out_dir, "sharded")
+    info = initialize_multihost(coordinator_address=f"127.0.0.1:{free_port()}",
+                                num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh(device_type="cuda")
+        shard_params(original, mesh)
+        _, sh_save_s = timed(lambda: save_params_sharded(original, sharded_dir))
+        loaded = {}
+        for name, model in (("sharded", shard_params(nan_model(cfg, dev), mesh)),
+                            ("plain", nan_model(cfg, dev))):
+            model, loaded[name] = timed(lambda: load_params_sharded(sharded_dir, model))
+            bad[f"sharded->{name}"] = unequal_tensors(model, want)
+            del model
+    finally:
+        dist.destroy_process_group()
+    model, loaded["plain, no group"] = timed(lambda: load_params_sharded(sharded_dir,
+                                                                         nan_model(cfg, dev)))
+    bad["sharded->plain, no group"] = unequal_tensors(model, want)
+    files = sorted(os.listdir(sharded_dir))
+    sizes = {"npz": os.path.getsize(npz), "sharded": sum(
+        os.path.getsize(os.path.join(sharded_dir, f)) for f in files)}
+    del model, original
+    torch.cuda.empty_cache()
+
+    engine.model = restored
+    clip = audio[: engine.cfg.sample_rate]
+    zero_launches()
+    motions = engine.inference(clip)
+    add_launches(counted)
+    verts = engine.flame.motion_to_verts(torch.zeros(len(motions), 300, device=dev),
+                                         torch.from_numpy(motions).to(dev))
+    zero_launches()
+    with torch.no_grad():
+        rgb = torch.clamp(engine.mesh_renderer(verts), 0.0, 1.0)
+        raster = rasterizer.LAUNCHES
+        add_launches(counted)
+        planes = rgb_to_yuv420p(rgb, channel_axis=-1).cpu().numpy()
+        rgb8 = torch.floor(torch.clamp(rgb * 255.0, 0.0, 255.0)).to(torch.uint8).cpu().numpy()
+    # pixels of 2x2 blocks of one colour, where 4:2:0 chroma loses nothing
+    blocks = rgb8.reshape(len(rgb8), IMAGE // 2, 2, IMAGE // 2, 2, 3)
+    flat = (blocks == blocks[:, :, :1, :, :1]).all(axis=(2, 4, 5))
+    flat = np.repeat(np.repeat(flat, 2, axis=1), 2, axis=2)
+    videos = {"yuv420": write_video(planes, os.path.join(out_dir, "clip_yuv.mp4"), cfg.fps, clip,
+                                    cfg.sample_rate, pix_fmt="yuv420"),
+              "rgb24": write_video(rgb8, os.path.join(out_dir, "clip_rgb.mp4"), cfg.fps, clip,
+                                   cfg.sample_rate, pix_fmt="rgb24")}
+    read, video_err = {}, {}
+    for fmt, path in videos.items():
+        read[fmt] = r = read_back(path)
+        if r["rgb"].shape != rgb8.shape or r["fps"] != cfg.fps or r["rate"] != cfg.sample_rate \
+                or r["samples"] not in (None, len(clip)):
+            raise AssertionError(f"[checkpoint] {path}: frames {r['rgb'].shape}, fps {r['fps']}, "
+                                 f"audio {r['rate']} Hz x {r['samples']}, want {rgb8.shape}, "
+                                 f"{cfg.fps}, {cfg.sample_rate} x {len(clip)}")
+        diff = np.abs(r["rgb"].astype(np.int16) - rgb8.astype(np.int16)).max(axis=-1)
+        video_err[fmt] = int(diff[flat].max())
+    try:
+        import av  # noqa: F401
+        have_av = True
+    except ImportError:
+        have_av = False
+    if have_av:
+        av_read = {fmt: (get_video_info(p)["video"]["num_frames"],
+                         read_all_video_frames(p)[0].shape) for fmt, p in videos.items()}
+    else:
+        av_read = {}
+        for fn in (get_video_info, read_all_video_frames):
+            try:
+                fn(videos["rgb24"])
+            except RuntimeError as e:
+                av_read[fn.__name__] = str(e)
+            else:
+                raise AssertionError(f"[checkpoint] {fn.__name__} ran without PyAV")
+
+    flipped = {"exact": int((bits != exact_bits).sum()), "int8": int((bits8 != int8_bits).sum())}
+    print(f"[checkpoint] {smi}: npz save_params_npz {npz_save_s:.2f} s ({sizes['npz'] / 1e9:.3f} "
+          f"GB stored), load_params {npz_load_s:.2f} s; sharded checkpoint on NCCL job {info},"
+          f" mesh {tuple(mesh.shape)}: save_params_sharded {sh_save_s:.2f} s "
+          f"({sizes['sharded'] / 1e9:.3f} GB in {files}), load_params_sharded "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in loaded.items()))
+    print(f"[checkpoint] {smi}: tensors differing {bad}; the restored model's window-0 code "
+          f"bits differing from phase 5's exact {flipped['exact']} and phase 8's int8 "
+          f"{flipped['int8']} of {bits.size}; launches exact {exact_launches}, int8 "
+          f"{int8_launches}; the phase's launches {counted}")
+    print(f"[checkpoint] {smi}: {len(motions)} frames rendered with {raster} rasterizer "
+          f"launches, written {videos}, read back at "
+          + ", ".join(f"{f} {r['fps']} fps / {r['rate']} Hz" for f, r in read.items())
+          + f"; RGB max abs err on 2x2-constant blocks ({flat.mean():.3f} of the pixels) "
+          f"{video_err}; PyAV readers: {av_read}")
+    if any(bad.values()) or any(flipped.values()):
+        raise AssertionError(f"[checkpoint] tensors {bad}, bits {flipped}")
+    if any(exact_launches.values()) or int8_launches != {"ar": len(cfg.vae.patch_nums),
+                                                         "encoder": 1, "flash": 0}:
+        raise AssertionError(f"[checkpoint] launches exact {exact_launches}, int8 "
+                             f"{int8_launches}")
+    if files != [".metadata", "__0_0.distcp"]:
+        raise AssertionError(f"[checkpoint] the sharded checkpoint holds {files}")
+    if len(motions) != 25 or raster != 25 or not flat.any() or any(
+            video_err[f] > 3 for f, r in read.items() if r["lossless"]):
+        raise AssertionError(f"[checkpoint] {len(motions)} frames, {raster} rasterizer launches, "
+                             f"RGB errors {video_err}")
+    no_other_launches("checkpoint", counted)
+    return counted
 
 
 def under(tools: dict, kernel: str) -> dict:
@@ -3262,6 +3510,8 @@ def main() -> int:
     phase_bench()
     torch.cuda.empty_cache()
     tools = phase_tools()
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoint(dev, audio, exact_bits, modes["int8"]["bits"], smi)
     print(f"[train summary] {smi}: " + "; ".join(
         f"{tag} {v['ms_step']:.3f} ms/step at batch {TRAIN_BATCH}, peak "
         f"{v['peak_gib']:.2f} GiB, bound {v['bound_ms']:.3f} ms ({v['bound_by']})"
@@ -3288,23 +3538,26 @@ def main() -> int:
                 "source": "artalk_tpu_torch/csrc/rasterizer.cu",
                 "replaces": "artalk_tpu/ops/rasterizer.py:196",
                 "launches": raster_launches, "parallel_launches": parallel["rasterize"],
-                "tool_launches": under(tools, "rasterize"), **kernel}]
+                "tool_launches": under(tools, "rasterize"),
+                "checkpoint_launches": ckpt["rasterize"], **kernel}]
     for mode, pack in PACK_OF_MODE.items():
         name = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}[pack]
         kernels.append({"name": f"ar_block_stack/{name}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/ar_block_stack.cu",
                         "replaces": "artalk_tpu/ops/ar_block_stack.py:350",
                         "launches": modes[mode]["launches"]["ar"],
-                        "parallel_launches": parallel.get(f"ar/{name}", 0),
+                        "parallel_launches": parallel[f"ar/{name}"],
                         "tool_launches": under(tools, f"ar/{name}"),
+                        "checkpoint_launches": ckpt[f"ar/{name}"],
                         "wide": wide_entry(pool_wide["int8"]["kernels"], f"ar/{name}"),
                         "max_abs_err": ar_err[name], **times[f"ar/{name}"]})
         kernels.append({"name": f"encoder_block_stack/{name}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/encoder_block_stack.cu",
                         "replaces": "artalk_tpu/ops/encoder_block_stack.py:339",
                         "launches": modes[mode]["launches"]["encoder"],
-                        "parallel_launches": parallel.get(f"encoder/{name}", 0),
+                        "parallel_launches": parallel[f"encoder/{name}"],
                         "tool_launches": under(tools, f"encoder/{name}"),
+                        "checkpoint_launches": ckpt[f"encoder/{name}"],
                         "wide": wide_entry(pool_wide["int8"]["kernels"], f"encoder/{name}"),
                         **train_launches.get(name, {
                             "train_launches": 0, "train_max_abs_err": None,
@@ -3313,20 +3566,25 @@ def main() -> int:
     for colors in ("f32", "bf16"):
         kernels.append({"name": f"gsplat/{colors}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/gsplat.cu",
-                        "replaces": "artalk_tpu/ops/gsplat.py:638", "parallel_launches": 0,
+                        "replaces": "artalk_tpu/ops/gsplat.py:638",
+                        "parallel_launches": parallel["gsplat"],
+                        "checkpoint_launches": ckpt["gsplat"],
                         "tool_launches": under(tools, "gsplat") if colors == "f32" else {},
                         **{k: v for k, v in splat[colors].items() if k != "ms_frame"}})
     for tag, mode in (("f32", "exact"), ("bf16", "fast")):
         kernels.append({"name": f"flash_attention/{tag}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/flash_attention.cu",
                         "replaces": "artalk_tpu/ops/attention.py:97",
-                        "launches": flash[mode]["launches"]["flash"], "parallel_launches": 0,
+                        "launches": flash[mode]["launches"]["flash"],
+                        "parallel_launches": parallel["flash"],
+                        "checkpoint_launches": ckpt["flash"],
                         "tool_launches": under(tools, "flash"),
                         "max_abs_err": flash_err[tag], **flash_times[tag]})
     kernels.append({"name": "sort_keys", "route": "cuda",
                     "source": "artalk_tpu_torch/csrc/sort.cu",
                     "replaces": "tools/exp_pallas_sort.py:106", "launches": gaga_sorts,
-                    "parallel_launches": 0, "tool_launches": under(tools, "sort"),
+                    "parallel_launches": parallel["sort"], "checkpoint_launches": ckpt["sort"],
+                    "tool_launches": under(tools, "sort"),
                     "max_abs_err": sort_err, **sort_times})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

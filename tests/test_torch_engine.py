@@ -19,6 +19,7 @@ from artalk_tpu.utils.video import read_video_npz
 
 from artalk_tpu_torch import cli as tcli
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
+from artalk_tpu_torch.utils.video import read_video_npz as port_read_video_npz
 from artalk_tpu_torch.utils.video import read_y4m
 
 from test_engine import CFG, _write_wav
@@ -103,6 +104,9 @@ def test_rendering_matches_jax(engines, rng):
             frames = z["frames"]
         rgb, fps, _, sr = read_video_npz(out)   # the JAX package reads the container
         assert rgb.shape == (len(motions), SIZE, SIZE, 3) and (fps, sr) == (25.0, 16000)
+        port = port_read_video_npz(out)         # and the port's own reader alike
+        np.testing.assert_array_equal(port[0], rgb)
+        assert (port[1], port[3]) == (fps, sr)
     else:  # an encoded video (PyAV or ffmpeg present): compare the renderer's frames
         verts = teng.flame.motion_to_verts(torch.zeros(len(motions), 300),
                                            torch.from_numpy(motions))

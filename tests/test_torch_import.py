@@ -39,7 +39,8 @@ def test_import_leaves_jax_out():
     the evaluation metrics, the native media runtime, the HTTP server, the
     checkpoint converter, the web UI, the metrics registry, the training
     package, the window-step export, the parallel package, the bench
-    with its timing and roofline helpers, and the measurement tools
+    with its timing and roofline helpers, the checkpoint and video
+    modules, and the measurement tools
     (``tools/``: the pool curve, the HTTP load test, the four stage
     profilers) are among them."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -61,6 +62,7 @@ def test_import_leaves_jax_out():
                    "artalk_tpu_torch.parallel.sharding", "artalk_tpu_torch.parallel.render",
                    "artalk_tpu_torch.parallel.distributed", "artalk_tpu_torch.bench",
                    "artalk_tpu_torch.utils.timing", "artalk_tpu_torch.utils.roofline",
+                   "artalk_tpu_torch.utils.checkpoint", "artalk_tpu_torch.utils.video",
                    "artalk_tpu_torch.tools"} | {
                        f"artalk_tpu_torch.tools.{m}" for m in (
                            "bench_streampool", "bench_http_serving", "profile_pipeline",
@@ -75,13 +77,15 @@ import artalk_tpu_torch.training
 from artalk_tpu_torch.training import data, losses, train, trainer
 from artalk_tpu_torch import export_model
 from artalk_tpu_torch.parallel import distributed, mesh, render, sharding
+from artalk_tpu_torch.utils import checkpoint, video
 print(sorted(artalk_tpu_torch.training.__all__))
 """
 
 
 def test_training_and_export_import_with_jax_blocked():
-    """The training package, the export entry point and the parallel package
-    import in a process where importing jax, jaxlib or artalk_tpu fails."""
+    """The training package, the export entry point, the parallel package and
+    the checkpoint and video modules import in a process where importing
+    jax, jaxlib or artalk_tpu fails."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_BLOCKED], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,5 +1,6 @@
 """Multi-process jobs of artalk_tpu_torch.parallel, run by
-tests/test_torch_parallel.py as real gloo processes on the CPU.
+tests/test_torch_parallel.py (and the ``checkpoint`` job by
+tests/test_torch_checkpoint.py) as real gloo processes on the CPU.
 
     python tests/torch_parallel_jobs.py <job> <rank> <world> <init file> <dir>
 
@@ -39,6 +40,8 @@ from artalk_tpu_torch.parallel.sharding import whole  # noqa: E402
 from artalk_tpu_torch.training import data as tdata  # noqa: E402
 from artalk_tpu_torch.training import train as ttrain  # noqa: E402
 from artalk_tpu_torch.training import trainer as ttrainer  # noqa: E402
+from artalk_tpu_torch.utils.checkpoint import (load_params, load_params_sharded,  # noqa: E402
+                                               save_params, save_params_sharded)
 from artalk_tpu_torch.utils.params import flat_from_module, load_flat_into  # noqa: E402
 
 # tests/test_training.py's CFG in the port's config classes
@@ -254,6 +257,36 @@ def _train_main(flags: list) -> dict:
     return {"eval_frames": np.array(-1 if metrics is None else metrics["frames"])}
 
 
+def job_checkpoint(inputs: dict) -> dict:
+    """tp=2: ``save_params_sharded`` of a sharded model (each rank writes its
+    shards to ``<ckpt_dir>/sharded``), then ``load_params_sharded`` into
+    fresh seed-1 models on a (1, 2) mesh, on a (2, 1) mesh and unsharded;
+    and ``save_params`` of the sharded model (gathered) to
+    ``<ckpt_dir>/rank<r>.npz`` loaded into a fresh (1, 2)-sharded model.
+    Returns each restored model's gathered parameters and the rank's local
+    shard of a column-split weight."""
+    ckpt = str(inputs["ckpt_dir"])
+    tp = make_mesh(dp=1, tp=2, device_type="cpu")
+    saved = shard_params(ar_model(_flat(inputs)), tp)
+    save_params_sharded(saved, os.path.join(ckpt, "sharded"))
+    npz = os.path.join(ckpt, f"rank{dist.get_rank()}.npz")
+    save_params(saved, npz)
+
+    def fresh():
+        return BitwiseARModel(SMALL_CFG).init(torch.Generator().manual_seed(1))
+
+    restored = {"tp2": shard_params(fresh(), tp),
+                "dp2": shard_params(fresh(), make_mesh(dp=2, tp=1, device_type="cpu")),
+                "plain": fresh()}
+    for model in restored.values():
+        load_params_sharded(os.path.join(ckpt, "sharded"), model)
+    restored["npz_tp2"] = load_params(npz, like=shard_params(fresh(), tp))
+    out = {"q_local": restored["tp2"].blocks.q.w.to_local().numpy()}
+    for name, model in restored.items():
+        out.update({f"{name}/{k}": v for k, v in flat_from_module(model).items()})
+    return out
+
+
 def job_all(inputs: dict) -> dict:
     """Every job that runs on a process group started here, in one pair of
     processes (each job's keys under its name)."""
@@ -269,7 +302,7 @@ def _flat(inputs: dict) -> dict:
 
 JOBS = {"decode": job_decode, "generate": job_generate, "render": job_render,
         "train": job_train, "pipeline": job_pipeline, "train_cli": job_train_cli,
-        "all": job_all,
+        "checkpoint": job_checkpoint, "all": job_all,
         "multihost": job_multihost}
 SELF_STARTED = {"multihost"}   # jobs that start the process group themselves
 
