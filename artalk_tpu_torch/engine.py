@@ -23,7 +23,12 @@ The engine feeds the metrics registry (``utils/metrics.GLOBAL_METRICS``) at
 the JAX engine's names and places: the stages ``inference.generate``,
 ``inference.postprocess``, ``stream.window_step``, ``render.flame_verts`` and
 ``render.rasterize``, the counters ``inference.windows``, ``inference.frames``
-and ``render.frames``. A stage times the host and adds no synchronisation.
+and ``render.frames``. Besides them, spans (in the registry's ring only, so
+its snapshot stays the JAX engine's): ``inference.download`` (the motion's
+copy to the host, which waits for the device), the window step's
+``window.encode``, ``window.decode`` and ``window.vae`` (``ar_model.py``),
+the mesh renderer's ``mesh.*`` and GAGAvatar's ``gaga.*``. A stage or span
+times the host and adds no synchronisation.
 
 Importing this module turns TF32 off for matmuls and cuDNN convolutions:
 greedy code bits flip under TF32 (through the wav2vec conv frontend, the
@@ -197,7 +202,9 @@ class ARTAvatarInferEngine:
         with GLOBAL_METRICS.stage("inference.postprocess"):
             motions = self._postprocess(motions[:, :seq_length], self.fix_pose)
         clip_length = clip_length if clip_length is not None else self.clip_length
-        return motions[0].cpu().numpy()[:clip_length]
+        with GLOBAL_METRICS.span("inference.download"):
+            motions = motions[0].cpu().numpy()
+        return motions[:clip_length]
 
     def stream(self, audio_chunks: Iterator[np.ndarray],
                state: Optional[WindowState] = None) -> Iterator[np.ndarray]:

@@ -36,6 +36,12 @@ argument of the head, the window decode and the window steps) draws from a
 JAX splits one key per window and per level: the filter is JAX's, the draws
 are not.
 
+A window step records three spans (``utils/metrics.GLOBAL_METRICS``; each
+times the host, and records nothing inside ``torch.export``):
+``window.encode`` (the audio condition), ``window.decode`` (the AR level
+walk) and ``window.vae`` (the VAE decode, the carry's re-encode and the new
+prefix).
+
 Training (``training/``) uses the teacher-forced ``forward_logits``: all 181
 tokens at once under the explicit VAR mask (``var_attn_bias``), with DropPath
 masks drawn by ``drop_path_masks`` from a ``torch.Generator`` (JAX draws them
@@ -54,6 +60,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.ar_block_stack import ar_block_stack, pack_block_weights
 from ..ops.resample1d import resize_area, resize_linear
+from ..utils.metrics import GLOBAL_METRICS
 from . import nn as tnn
 from .bitwise_vae import BitwiseVAE
 from .bsq import bits_to_values
@@ -550,17 +557,20 @@ class BitwiseARModel(nn.Module):
         """One sliding-window step: (B, window_samples) audio -> 100 motion
         frames (B, window, motion_dim) + the new carry. ``sample`` as in
         ``decode_window``."""
-        return self.window_step_cond(state, self.audio_condition(audio_chunk), style_cond,
-                                     sample)
+        with GLOBAL_METRICS.span("window.encode"):
+            audio_cond = self.audio_condition(audio_chunk)
+        return self.window_step_cond(state, audio_cond, style_cond, sample)
 
     def window_step_cond(self, state: WindowState, audio_cond: torch.Tensor,
                          style_cond: torch.Tensor, sample: Optional[tuple] = None
                          ) -> Tuple[WindowState, torch.Tensor]:
         """Window step with the audio condition already computed."""
-        bits = self.decode_window(audio_cond, style_cond, state.prev_attn_feat, sample)
-        _, this_motion = self.vae.decode_from_bits(state.prev_bits, bits)
-        new_prev_bits, _ = self.vae.encode_to_bits(this_motion)
-        new_prefix = self._prefix_from_bits(style_cond, new_prev_bits)
+        with GLOBAL_METRICS.span("window.decode"):
+            bits = self.decode_window(audio_cond, style_cond, state.prev_attn_feat, sample)
+        with GLOBAL_METRICS.span("window.vae"):
+            _, this_motion = self.vae.decode_from_bits(state.prev_bits, bits)
+            new_prev_bits, _ = self.vae.encode_to_bits(this_motion)
+            new_prefix = self._prefix_from_bits(style_cond, new_prev_bits)
         rolled = torch.cat(
             [state.prev_attn_feat[:, new_prefix.shape[1]:], new_prefix], dim=1)
         return WindowState(new_prev_bits, rolled), this_motion

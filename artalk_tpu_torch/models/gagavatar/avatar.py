@@ -9,6 +9,13 @@ re-posed, the head rotation is folded into the camera
 kernel on the card) is super-resolved by StyleUNet, clipped, watermarked and
 packed to uint8 on the device, one 25-frame chunk at a time.
 
+``render_motion_sequence`` records spans (``utils/metrics.GLOBAL_METRICS``;
+each times the host): ``gaga.avatar`` once a call (selecting the avatar and
+its encode, which a new avatar id repeats), per chunk ``gaga.prep`` (FLAME,
+the forehead EMA, the cameras) and ``gaga.download`` (yuv420 or uint8, the
+copy to the host, which waits for the device), and per frame ``gaga.splat``
+and ``gaga.upsample`` (StyleUNet, clip, watermark).
+
 Precision, read from the environment at construction as in JAX:
 ``ARTALK_GAGA_PRECISION=fast`` (default: bf16 StyleUNet and bf16 splat
 colors, both feeding 8-bit video) or ``exact`` (float32 throughout).
@@ -34,6 +41,7 @@ from ...ops.colorspace import rgb_to_yuv420p
 from ...ops.gsplat import rasterize_gaussians
 from ...ops.resize2d import resize_antialias
 from ...utils.assets import ensure_synthetic_avatars
+from ...utils.metrics import GLOBAL_METRICS
 from ...utils.params import gagavatar_from_flat, load_params_npz
 from ..nn import full_float32
 from .dino import DinoDPT
@@ -218,13 +226,16 @@ class GAGAvatar:
     def _frame(self, t_points: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
         """Re-posed gaussians -> splat -> SR -> clip -> watermark: (1, 3, S, S)."""
         gs = self._gs_params
-        xyz = torch.cat([t_points, gs["xyz"][0, NUM_FLAME_VERTS:]])
-        render = rasterize_gaussians(
-            xyz, gs["colors"][0], gs["opacities"][0], gs["scales"][0], gs["rotations"][0],
-            cam, focal=CAM_PARAMS["focal"], size=CAM_PARAMS["size"],
-            bf16_colors=self.bf16)
-        sr = self._upsampler(render[None], compute_dtype=torch.bfloat16 if self.bf16 else None)
-        return apply_watermark(torch.clamp(sr, 0.0, 1.0), self._watermark)
+        with GLOBAL_METRICS.span("gaga.splat"):
+            xyz = torch.cat([t_points, gs["xyz"][0, NUM_FLAME_VERTS:]])
+            render = rasterize_gaussians(
+                xyz, gs["colors"][0], gs["opacities"][0], gs["scales"][0], gs["rotations"][0],
+                cam, focal=CAM_PARAMS["focal"], size=CAM_PARAMS["size"],
+                bf16_colors=self.bf16)
+        with GLOBAL_METRICS.span("gaga.upsample"):
+            sr = self._upsampler(render[None],
+                                 compute_dtype=torch.bfloat16 if self.bf16 else None)
+            return apply_watermark(torch.clamp(sr, 0.0, 1.0), self._watermark)
 
     def _ensure_avatar(self) -> None:
         if self._tracked is None:
@@ -274,9 +285,10 @@ class GAGAvatar:
         last motion, so FLAME always runs at one batch size, and the padding
         leaves the EMA carry alone; the padded frames are not rendered (JAX
         renders and drops them)."""
-        if self._tracked is None or avatar_id not in (None, ""):
-            self.set_avatar_id(avatar_id)
-        self._ensure_avatar()
+        with GLOBAL_METRICS.span("gaga.avatar"):
+            if self._tracked is None or avatar_id not in (None, ""):
+                self.set_avatar_id(avatar_id)
+            self._ensure_avatar()
         motions = torch.as_tensor(motions, dtype=torch.float32).to(self.device)
         t_total = motions.shape[0]
         pad = (-t_total) % transfer_chunk
@@ -289,16 +301,19 @@ class GAGAvatar:
         outs = []
         for i in range(0, motions.shape[0], transfer_chunk):
             valid = min(transfer_chunk, t_total - i)
-            t_points, cams, carry = prep_frame_chunk(
-                flame_model, cache["shapecode"], cache["transform"],
-                motions[i:i + transfer_chunk], carry, first, valid)
+            with GLOBAL_METRICS.span("gaga.prep"):
+                t_points, cams, carry = prep_frame_chunk(
+                    flame_model, cache["shapecode"], cache["transform"],
+                    motions[i:i + transfer_chunk], carry, first, valid)
             first = False
             sr = torch.cat([self._frame(tp, cam)
                             for tp, cam in zip(t_points[:valid], cams[:valid])])
-            if colorspace == "yuv420":
-                frames = rgb_to_yuv420p(sr, channel_axis=1)
-            else:
-                frames = torch.clamp(sr.permute(0, 2, 3, 1) * 255.0, 0.0, 255.0).to(torch.uint8)
-            outs.append(frames.cpu().numpy())
+            with GLOBAL_METRICS.span("gaga.download"):
+                if colorspace == "yuv420":
+                    frames = rgb_to_yuv420p(sr, channel_axis=1)
+                else:
+                    frames = torch.clamp(sr.permute(0, 2, 3, 1) * 255.0, 0.0,
+                                         255.0).to(torch.uint8)
+                outs.append(frames.cpu().numpy())
         self._upper_points = carry[None]
         return np.concatenate(outs, axis=0)

@@ -8,6 +8,11 @@ NDC units), uniform vertex color (142, 179, 247)/255, point light at
 Visibility comes from the z-buffer rasterizer (``ops/rasterizer.py``, a CUDA
 kernel on the card); normals and shading are plain torch, as they are XLA in
 JAX.
+
+``render_frames`` records three spans per batch
+(``utils/metrics.GLOBAL_METRICS``; each times the host): ``mesh.draw``
+(rasterize and shade), ``mesh.colorspace`` (yuv420) and ``mesh.download``
+(the copy to the host, which waits for the device).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from ..ops.colorspace import rgb_to_yuv420p
 from ..ops.rasterizer import face_planes, rasterize
+from ..utils.metrics import GLOBAL_METRICS
 from .nn import l2_normalize
 
 AMBIENT = 0.5
@@ -174,6 +180,10 @@ class MeshRenderer:
             n = batch.shape[0]
             if n < chunk:
                 batch = torch.cat([batch, batch[-1:].expand(chunk - n, -1, -1)])
-            frames = rgb_to_yuv420p(torch.clamp(self(batch), 0.0, 1.0), channel_axis=-1)
-            out.append(frames[:n].cpu().numpy())
+            with GLOBAL_METRICS.span("mesh.draw"):
+                rgb = self(batch)
+            with GLOBAL_METRICS.span("mesh.colorspace"):
+                frames = rgb_to_yuv420p(torch.clamp(rgb, 0.0, 1.0), channel_axis=-1)
+            with GLOBAL_METRICS.span("mesh.download"):
+                out.append(frames[:n].cpu().numpy())
         return np.concatenate(out, axis=0)

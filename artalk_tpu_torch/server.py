@@ -14,6 +14,21 @@ Architecture (stdlib only):
   aggregation, then wakes all waiters with their rows;
 - one lock serializes pool mutations (open/close/grow) against ticks.
 
+Spans (``utils/metrics.GLOBAL_METRICS``; each times the host): on a request
+thread, ``http.chunk`` around a chunk's whole handler, with the children
+``batcher.wait`` (from the chunk's enqueue to its tick's wake-up) and
+``http.encode`` (the reply's ``tolist``, ``json.dumps`` and ``encode``), all
+three carrying the request id (``http.chunk``'s span id) and the session id.
+On the tick thread, ``batcher.idle`` (waiting with nothing pending) and
+``batcher.tick`` (tick id) with the children ``batcher.aggregate`` (the
+``tick_ms`` sleep), ``batcher.lock`` (acquiring the pool lock), the pool's
+``pool.tick`` and ``batcher.fanout`` (handing out the rows); between its
+first tick and its last, the tick thread is always inside one of them, and
+``batcher.tick`` holds the thread's CPU time. For
+each chunk a tick carries, the tick thread records ``batcher.queue``
+(request id, session id, tick id) from the chunk's enqueue to the moment
+the tick hands its batch to ``StreamPool.step``.
+
 ``/v1/motion`` and ``/v1/video`` run ``engine.inference`` and
 ``engine.rendering`` on their request threads, on the same device as the
 ticks. Every model call runs under ``torch.no_grad()``: grad mode is per
@@ -62,6 +77,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from .utils.metrics import GLOBAL_METRICS
+
 
 class _TickBatcher:
     """Aggregates concurrent chunk submissions into one batched pool step.
@@ -84,23 +101,29 @@ class _TickBatcher:
         self.tick_s = tick_ms / 1000.0
         self._cv = threading.Condition()
         self._pending: Dict[int, dict] = {}
+        self._ticks = 0             # the id of the next tick that steps the pool
         self._running = True
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="artalk-tick")
         self._thread.start()
 
-    def submit(self, sid: int, chunk: np.ndarray, timeout: float = 600.0):
+    def submit(self, sid: int, chunk: np.ndarray, timeout: float = 600.0,
+               request: int = 0):
+        """Queue ``sid``'s chunk for the next tick and wait for its rows;
+        ``request`` is the id its spans carry."""
         # The default timeout covers a first tick that builds the kernels
         # (nvcc takes up to minutes); steady-state ticks are milliseconds.
-        entry = {"chunk": chunk, "event": threading.Event()}
-        with self._cv:
-            if sid in self._pending:
-                raise self.BusyError(f"session {sid} already has a chunk "
-                                     "in flight; await its response first")
-            self._pending[sid] = entry
-            self._cv.notify()
-        if not entry["event"].wait(timeout):
-            raise TimeoutError("tick did not complete in time")
+        entry = {"chunk": chunk, "event": threading.Event(), "request": request}
+        with GLOBAL_METRICS.span("batcher.wait", request=request, sid=sid):
+            with self._cv:
+                if sid in self._pending:
+                    raise self.BusyError(f"session {sid} already has a chunk "
+                                         "in flight; await its response first")
+                entry["enqueued_ns"] = time.monotonic_ns()
+                self._pending[sid] = entry
+                self._cv.notify()
+            if not entry["event"].wait(timeout):
+                raise TimeoutError("tick did not complete in time")
         if "error" in entry:
             raise entry["error"]
         return entry["motion"]
@@ -115,35 +138,52 @@ class _TickBatcher:
 
     def _run(self):
         while True:
-            with self._cv:
-                while self._running and not self._pending:
-                    self._cv.wait()
-                if not self._running:
-                    return
-            # aggregation window: let concurrent requests join this tick
+            with GLOBAL_METRICS.span("batcher.idle"):
+                with self._cv:
+                    while self._running and not self._pending:
+                        self._cv.wait()
+                    if not self._running:
+                        return
+            with GLOBAL_METRICS.span("batcher.tick", cpu_time=True) as tick_span:
+                self._tick(tick_span)
+
+    def _tick(self, tick_span):
+        # aggregation window: let concurrent requests join this tick
+        with GLOBAL_METRICS.span("batcher.aggregate"):
             time.sleep(self.tick_s)
-            with self._cv:
-                batch, self._pending = self._pending, {}
-            with self.pool_lock:
-                live = set(self.pool.active_sessions)
-                gone = {s: e for s, e in batch.items() if s not in live}
-                batch = {s: e for s, e in batch.items() if s in live}
-                for sid, entry in gone.items():
-                    entry["error"] = self.GoneError(
-                        f"session {sid} was closed while its chunk waited")
+        with self._cv:
+            batch, self._pending = self._pending, {}
+        with GLOBAL_METRICS.span("batcher.lock"):
+            self.pool_lock.acquire()
+        try:
+            live = set(self.pool.active_sessions)
+            gone = {s: e for s, e in batch.items() if s not in live}
+            batch = {s: e for s, e in batch.items() if s in live}
+            for sid, entry in gone.items():
+                entry["error"] = self.GoneError(
+                    f"session {sid} was closed while its chunk waited")
+                entry["event"].set()
+            if not batch:
+                return
+            tick_span.attrs["tick"] = tick = self._ticks
+            self._ticks += 1
+            stepped_ns = time.monotonic_ns()
+            try:
+                with torch.no_grad():
+                    out = self.pool.step({s: e["chunk"] for s, e in batch.items()})
+                for sid, entry in batch.items():
+                    entry["motion"] = out[sid]
+            except Exception as exc:  # noqa: BLE001 — fan the tick
+                for entry in batch.values():  # failure out per-request
+                    entry["error"] = exc
+            for sid, entry in batch.items():
+                GLOBAL_METRICS.record_span("batcher.queue", entry["enqueued_ns"], stepped_ns,
+                                           request=entry["request"], sid=sid, tick=tick)
+            with GLOBAL_METRICS.span("batcher.fanout"):
+                for entry in batch.values():
                     entry["event"].set()
-                if batch:
-                    try:
-                        with torch.no_grad():
-                            out = self.pool.step(
-                                {s: e["chunk"] for s, e in batch.items()})
-                        for sid, entry in batch.items():
-                            entry["motion"] = out[sid]
-                    except Exception as exc:  # noqa: BLE001 — fan the tick
-                        for entry in batch.values():  # failure out per-request
-                            entry["error"] = exc
-                    for entry in batch.values():
-                        entry["event"].set()
+        finally:
+            self.pool_lock.release()
 
 
 class MotionServer:
@@ -243,7 +283,9 @@ class MotionServer:
             # -------------------------------------------------- io helpers
 
             def _json(self, code: int, obj: dict):
-                body = json.dumps(obj).encode()
+                self._send_json(code, json.dumps(obj).encode())
+
+            def _send_json(self, code: int, body: bytes):
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
@@ -309,10 +351,16 @@ class MotionServer:
                 return self._json(200, {"sid": sid})
 
             def _chunk(self, sid_str: str):
+                with GLOBAL_METRICS.span("http.chunk") as sp:
+                    sp.attrs["request"] = sp.id
+                    return self._serve_chunk(sid_str, sp)
+
+            def _serve_chunk(self, sid_str: str, sp):
                 try:
                     sid = int(sid_str)
                 except ValueError:
                     return self._err(404, f"bad session id {sid_str!r}")
+                sp.attrs["sid"] = sid
                 if sid not in server.pool.active_sessions:
                     return self._err(404, f"unknown session {sid}")
                 pcm = self._read_pcm()
@@ -324,15 +372,17 @@ class MotionServer:
                         f"{server.pool.window_samples}-sample window; "
                         "split it across requests")
                 try:
-                    motion = server.batcher.submit(sid, pcm)
+                    motion = server.batcher.submit(sid, pcm, request=sp.id)
                 except _TickBatcher.BusyError as exc:
                     return self._err(409, str(exc))
                 except _TickBatcher.GoneError as exc:
                     return self._err(410, str(exc))
                 except TimeoutError as exc:
                     return self._err(504, str(exc))
-                return self._json(200, {"frames": int(motion.shape[0]),
-                                        "motion": motion.tolist()})
+                with GLOBAL_METRICS.span("http.encode", request=sp.id, sid=sid):
+                    body = json.dumps({"frames": int(motion.shape[0]),
+                                       "motion": motion.tolist()}).encode()
+                return self._send_json(200, body)
 
             def _one_shot(self):
                 pcm = self._read_pcm()

@@ -10,6 +10,12 @@ shape, and the previous carry is merged back for them with ``torch.where``,
 so a paused session continues exactly where it stopped. (The JAX pool does
 the same masking inside its jitted, donated step; the port runs eagerly.)
 
+Spans (``utils/metrics.GLOBAL_METRICS``; each times the host): ``step`` is
+one ``pool.tick`` (rows stepped = capacity, rows with audio), with the
+children ``pool.pack`` (the host buffer), ``pool.upload`` (its copy to the
+device), the window step's ``window.*`` and ``pool.download`` (the motion's
+copy to the host, which waits for the device; with the thread's CPU time).
+
 With ``ARTALK_AR_PRECISION=fast`` or ``int8`` (``bf16_ar`` / ``int8_ar``) the
 batched decode runs the AR block-stack kernel at any batch; float32 packs
 keep the kernel to batch <= 2, as in the JAX package.
@@ -34,6 +40,7 @@ import torch
 
 from .engine import build_fused_packs
 from .models.ar_model import BitwiseARModel, WindowState
+from .utils.metrics import GLOBAL_METRICS
 
 
 class StreamPool:
@@ -134,29 +141,34 @@ class StreamPool:
         chunks are zero-padded, as in ``engine.stream``). Sessions not in
         ``chunks`` idle this tick: their carry is kept. Returns session id ->
         (ceil(valid_samples / 640), 106) raw motion."""
-        unknown = [s for s in chunks if s not in self._active]
-        if unknown:
-            raise KeyError(f"unknown session(s) {unknown}")
-        ws = self.window_samples
-        buf = np.zeros((self.capacity, ws), np.float32)
-        n_valid: Dict[int, int] = {}
-        for sid, chunk in chunks.items():
-            chunk = np.asarray(chunk, np.float32).reshape(-1)
-            if len(chunk) > ws:
-                # dropping the tail would put audio and motion out of step by
-                # the excess every tick: make the caller split
-                raise ValueError(
-                    f"session {sid}: chunk of {len(chunk)} samples exceeds "
-                    f"the {ws}-sample window; split it across ticks")
-            buf[sid, : len(chunk)] = chunk
-            n_valid[sid] = len(chunk)
-        stepped = torch.zeros(self.capacity, dtype=torch.bool)
-        stepped[list(chunks)] = True
-        _, motion = self.device_step(torch.from_numpy(buf).to(self.device),
-                                     stepped.to(self.device))
-        host_motion = motion.cpu().numpy()
-        return {sid: host_motion[sid, : math.ceil(n / self.sample_rate * self.fps)]
-                for sid, n in n_valid.items()}
+        with GLOBAL_METRICS.span("pool.tick", rows_stepped=self.capacity,
+                                 rows_with_audio=len(chunks)):
+            unknown = [s for s in chunks if s not in self._active]
+            if unknown:
+                raise KeyError(f"unknown session(s) {unknown}")
+            with GLOBAL_METRICS.span("pool.pack"):
+                ws = self.window_samples
+                buf = np.zeros((self.capacity, ws), np.float32)
+                n_valid: Dict[int, int] = {}
+                for sid, chunk in chunks.items():
+                    chunk = np.asarray(chunk, np.float32).reshape(-1)
+                    if len(chunk) > ws:
+                        # dropping the tail would put audio and motion out of
+                        # step by the excess every tick: make the caller split
+                        raise ValueError(
+                            f"session {sid}: chunk of {len(chunk)} samples exceeds "
+                            f"the {ws}-sample window; split it across ticks")
+                    buf[sid, : len(chunk)] = chunk
+                    n_valid[sid] = len(chunk)
+                stepped = torch.zeros(self.capacity, dtype=torch.bool)
+                stepped[list(chunks)] = True
+            with GLOBAL_METRICS.span("pool.upload"):
+                audio, stepped = torch.from_numpy(buf).to(self.device), stepped.to(self.device)
+            _, motion = self.device_step(audio, stepped)
+            with GLOBAL_METRICS.span("pool.download", cpu_time=True):
+                host_motion = motion.cpu().numpy()
+            return {sid: host_motion[sid, : math.ceil(n / self.sample_rate * self.fps)]
+                    for sid, n in n_valid.items()}
 
 
 def _demo(argv=None) -> None:

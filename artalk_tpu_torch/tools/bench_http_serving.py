@@ -20,11 +20,10 @@ that concurrency.
 
 The clients run as threads of the server's process, as in the JAX tool: they,
 the request threads, the tick thread and the pool share one interpreter
-lock. Per N the tool also prints the pool step's own time, read from the
-metrics registry (``utils/metrics.GLOBAL_METRICS``, stage ``pool.step``: the
-batched window step and the motion's copy to the host, timed around
-``StreamPool.step`` by this tool), so the front end's share can be told
-from the pool's.
+lock. Per N the tool also prints the pool step's own time, the median of the
+program's ``pool.tick`` spans (``utils/metrics.GLOBAL_METRICS``: one per
+``StreamPool.step``, the batched window step and the motion's copy to the
+host), so the front end's share can be told from the pool's.
 
 ``--precision`` sets ``ARTALK_AR_PRECISION`` (and ``ARTALK_AR_FUSED=1`` for
 fast and int8) while the engine is built, and unsets both for exact. The
@@ -55,7 +54,7 @@ from . import device_line
 
 PRECISION_ENV = {"exact": {}, "fast": {"ARTALK_AR_PRECISION": "fast", "ARTALK_AR_FUSED": "1"},
                  "int8": {"ARTALK_AR_PRECISION": "int8", "ARTALK_AR_FUSED": "1"}}
-STEP_STAGE = "pool.step"
+STEP_SPAN = "pool.tick"
 
 
 def _request(conn: http.client.HTTPConnection, method: str, path: str, body: bytes,
@@ -147,13 +146,6 @@ def main(argv: Optional[list] = None, device: Union[str, torch.device] = "cuda",
     engine = with_env(PRECISION_ENV[args.precision], lambda: ARTAvatarInferEngine(
         assets_dir=str(ASSETS), config=config, device=dev))
     server = MotionServer(engine, capacity=cap, max_sessions=cap)
-    pool_step = server.pool.step
-
-    def timed_step(chunks):
-        with GLOBAL_METRICS.stage(STEP_STAGE):
-            return pool_step(chunks)
-
-    server.pool.step = timed_step
     port = server.start(port=0)
     ws = server.pool.window_samples
     print(f"server up on :{port}  capacity={cap}  precision={args.precision}\n")
@@ -170,7 +162,8 @@ def main(argv: Optional[list] = None, device: Union[str, torch.device] = "cuda",
             wall = max(r[2] for r in results) - min(r[1] for r in results)
             p50, p90 = np.percentile(lats, [50, 90])
             sw_s = n * args.windows / wall   # session-windows per second (saturated)
-            step_ms = GLOBAL_METRICS.snapshot()[f"{STEP_STAGE}_p50_ms"]
+            steps = [sp.duration_ns / 1e6 for sp in GLOBAL_METRICS.spans(STEP_SPAN)]
+            step_ms = round(float(np.median(steps)), 2) if steps else 0.0
             print(f"N={n:3d}  chunk p50 {p50:7.1f} ms  p90 {p90:7.1f} ms  "
                   f"throughput {sw_s:6.1f} windows/s  "
                   f"~{sw_s * 4.0:6.0f} RT streams sustainable  "
