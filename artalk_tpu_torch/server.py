@@ -17,8 +17,9 @@ Architecture (stdlib only):
 Spans (``utils/metrics.GLOBAL_METRICS``; each times the host): on a request
 thread, ``http.chunk`` around a chunk's whole handler, with the children
 ``batcher.wait`` (from the chunk's enqueue to its tick's wake-up) and
-``http.encode`` (the reply's ``tolist``, ``json.dumps`` and ``encode``), all
-three carrying the request id (``http.chunk``'s span id) and the session id.
+``http.encode`` (the reply's body written, with its length in ``bytes``),
+all three carrying the request id (``http.chunk``'s span id) and the session
+id.
 On the tick thread, ``batcher.idle`` (waiting with nothing pending) and
 ``batcher.tick`` (tick id) with the children ``batcher.aggregate`` (the
 ``tick_ms`` sleep), ``batcher.lock`` (acquiring the pool lock), the pool's
@@ -28,6 +29,12 @@ first tick and its last, the tick thread is always inside one of them, and
 each chunk a tick carries, the tick thread records ``batcher.queue``
 (request id, session id, tick id) from the chunk's enqueue to the moment
 the tick hands its batch to ``StreamPool.step``.
+
+The motion replies of ``/v1/sessions/<sid>/audio`` and ``/v1/motion`` are
+written by ``ops/motion_json.MotionJSON``: the bytes of ``json.dumps`` of the
+rows, written by host code that does not hold the interpreter lock, so the
+request threads encoding replies leave it to the tick thread, which launches
+the pool step. Its library is built or loaded in ``MotionServer.__init__``.
 
 ``/v1/motion`` and ``/v1/video`` run ``engine.inference`` and
 ``engine.rendering`` on their request threads, on the same device as the
@@ -195,12 +202,14 @@ class MotionServer:
         """Without ``engine``, builds ``ARTAvatarInferEngine(config=config,
         params=params, device=device)``; the pool runs on the engine's device."""
         from .engine import ARTAvatarInferEngine
+        from .ops.motion_json import MotionJSON
         from .serving import StreamPool
 
         if engine is None:
             engine = ARTAvatarInferEngine(load_gaga=False, config=config,
                                           params=params, device=device)
         self.engine = engine
+        self.motion_json = MotionJSON()
         with torch.no_grad():
             self.pool = StreamPool(engine.model, max_sessions=capacity)
         self.max_sessions = int(max_sessions or capacity)
@@ -285,7 +294,7 @@ class MotionServer:
             def _json(self, code: int, obj: dict):
                 self._send_json(code, json.dumps(obj).encode())
 
-            def _send_json(self, code: int, body: bytes):
+            def _send_json(self, code: int, body: Union[bytes, memoryview]):
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
@@ -379,9 +388,9 @@ class MotionServer:
                     return self._err(410, str(exc))
                 except TimeoutError as exc:
                     return self._err(504, str(exc))
-                with GLOBAL_METRICS.span("http.encode", request=sp.id, sid=sid):
-                    body = json.dumps({"frames": int(motion.shape[0]),
-                                       "motion": motion.tolist()}).encode()
+                with GLOBAL_METRICS.span("http.encode", request=sp.id, sid=sid) as enc:
+                    body = server.motion_json.encode(motion)
+                    enc.attrs["bytes"] = len(body)
                 return self._send_json(200, body)
 
             def _one_shot(self):
@@ -389,8 +398,7 @@ class MotionServer:
                 if len(pcm) == 0:
                     return self._err(400, "empty audio")
                 motion = server.one_shot(pcm)
-                return self._json(200, {"frames": int(motion.shape[0]),
-                                        "motion": motion.tolist()})
+                return self._send_json(200, server.motion_json.encode(motion))
 
             VIDEO_TYPES = {".mp4": "video/mp4", ".y4m": "video/x-yuv4mpeg",
                            ".npz": "application/octet-stream"}

@@ -173,7 +173,7 @@ def test_rasterize_gaussians_other_devices_raise():
 
 
 @pytest.mark.parametrize("name", ["ar_block_stack", "attention", "encoder_block_stack",
-                                  "gsplat", "rasterizer", "sort"])
+                                  "gsplat", "motion_json", "rasterizer", "sort"])
 def test_kernel_headers_cover_the_includes(name):
     """A kernel library is named by a hash of its SOURCE and HEADERS only, so
     HEADERS must list every header the source reaches through #include "...":
@@ -243,3 +243,35 @@ def test_build_library_builds_once_across_threads(tmp_path, monkeypatch):
     assert str(runs[0]) in os.path.basename(out)
     assert results[0][1].endswith(".so") and os.path.exists(results[0][1])
     assert _nvcc.library_lock(source) is _nvcc.library_lock(str(source))
+
+
+@pytest.mark.parametrize("suffix", [".cu", ".cpp"])
+def test_build_library_picks_the_compiler_by_suffix(tmp_path, monkeypatch, suffix):
+    """A CUDA source goes to nvcc for sm_90a, a host source to the host
+    compiler as C++17 (no nvcc flag); both into the same hash-named cache,
+    bound with ctypes.CDLL. The compiler and the loader are stubbed."""
+    from artalk_tpu_torch.ops import _nvcc
+
+    source = tmp_path / f"k{suffix}"
+    source.write_text("// source")
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path / "build")
+    cmds = []
+
+    def fake_compiler(cmd, **kwargs):
+        cmds.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("lib")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_nvcc.subprocess, "run", fake_compiler)
+    monkeypatch.setattr(_nvcc.ctypes, "CDLL", lambda path: ("lib", path))
+    lib, _, report = _nvcc.build_library(source)
+    _nvcc.build_library(source)                         # reused from the cache
+    (cmd,) = cmds
+    assert report == "" and "-std=c++17" in cmd and cmd[-1] == str(source)
+    assert os.path.dirname(lib[1]) == str(tmp_path / "build")
+    if suffix == ".cu":
+        assert os.path.basename(cmd[0]) == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd
+    else:
+        assert os.path.basename(cmd[0]) in ("c++", "g++") and "-fPIC" in cmd
+        assert not any("sm_90a" in arg or arg.startswith("-X") for arg in cmd)

@@ -5,7 +5,8 @@ second chunk in flight (409).
 The JAX references are computed in the main thread before the server starts
 (the server's threads run torch only): session rows equal JAX
 ``engine.stream`` rows to 1e-5, ``/v1/motion`` equals JAX ``engine.inference``
-to 1e-5 (``tests/test_torch_engine.py``'s tolerance), and ``/v1/video``
+to 1e-5 (``tests/test_torch_engine.py``'s tolerance), the body of both motion
+routes is byte for byte ``json.dumps`` of its float32 rows, and ``/v1/video``
 returns a readable ``.y4m`` of the right frame count. Every HTTP call has a
 timeout."""
 
@@ -75,6 +76,17 @@ def _req_err(url, method="GET", data=None, ctype="application/octet-stream"):
         return e.code, json.loads(e.read().decode())
 
 
+def _motion_req(url, data):
+    """POST ``data`` to a motion route: (the parsed reply, its body equals
+    ``json.dumps`` of the reply's rows read back as float32, which is exact:
+    each value is a float32's shortest repr)."""
+    code, _, raw = _req_raw(url, data)
+    assert code == 200
+    body = json.loads(raw.decode())
+    rows = np.asarray(body["motion"], np.float32)
+    return body, raw == json.dumps({"frames": len(rows), "motion": rows.tolist()}).encode()
+
+
 def _open(base):
     code, body = _req(f"{base}/v1/sessions", "POST", b"{}", "application/json")
     assert code == 200
@@ -95,8 +107,8 @@ def test_stream_session_matches_jax_stream(served):
     server, want, base = served
     sid = _open(base)
     for chunk, rows in zip(want["chunks"], want["stream"]):
-        code, body = _req(f"{base}/v1/sessions/{sid}/audio", "POST", chunk.tobytes())
-        assert code == 200
+        body, same_bytes = _motion_req(f"{base}/v1/sessions/{sid}/audio", chunk.tobytes())
+        assert same_bytes
         assert body["frames"] == len(body["motion"]) == len(rows)
         np.testing.assert_allclose(np.asarray(body["motion"], np.float32), rows, atol=1e-5)
     code, _ = _req(f"{base}/v1/sessions/{sid}", "DELETE")
@@ -190,8 +202,8 @@ def test_chunk_validation(served):
 
 def test_one_shot_matches_jax_inference(served):
     _, want, base = served
-    code, body = _req(f"{base}/v1/motion", "POST", want["audio"].tobytes())
-    assert code == 200
+    body, same_bytes = _motion_req(f"{base}/v1/motion", want["audio"].tobytes())
+    assert same_bytes
     assert body["frames"] == want["inference"].shape[0]
     np.testing.assert_allclose(np.asarray(body["motion"], np.float32), want["inference"],
                                atol=1e-5)

@@ -2,7 +2,7 @@
 
 The HTTP server: two concurrent chunks ride one tick, and each has
 ``http.chunk`` holding ``batcher.wait`` and ``http.encode``, one request id
-throughout; its ``batcher.queue`` carries the tick id of the ``batcher.tick``
+throughout, ``http.encode`` carrying the length of the reply's body; its ``batcher.queue`` carries the tick id of the ``batcher.tick``
 that holds the carrying ``pool.tick`` and ends before that ``pool.tick``
 starts; ``pool.tick`` carries rows stepped = capacity and rows with audio =
 2, and holds the pack, the upload, the window step and the download; the
@@ -113,6 +113,8 @@ def test_each_chunk_is_one_request_from_handler_to_tick(two_chunks):
         assert all(sp.attrs["request"] == rid and sp.attrs["sid"] == c.attrs["sid"]
                    for sp in kids)
         wait, encode = sorted(kids, key=lambda sp: sp.start_ns)
+        reply = two_chunks["replies"][c.attrs["sid"]]
+        assert encode.attrs["bytes"] == len(json.dumps(reply).encode())
         assert c.start_ns <= wait.start_ns <= wait.end_ns <= encode.start_ns <= c.end_ns
         assert c.thread != two_chunks["tick_thread"]
         (queued,) = [q for q in by["batcher.queue"] if q.attrs["request"] == rid]
