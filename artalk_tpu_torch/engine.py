@@ -27,8 +27,10 @@ and ``render.frames``. Besides them, spans (in the registry's ring only, so
 its snapshot stays the JAX engine's): ``inference.download`` (the motion's
 copy to the host, which waits for the device), the window step's
 ``window.encode``, ``window.decode`` and ``window.vae`` (``ar_model.py``),
-the mesh renderer's ``mesh.*`` and GAGAvatar's ``gaga.*``. A stage or span
-times the host and adds no synchronisation.
+the Mimi encoder's ``mimi.*`` (``models/mimi.py``; their ``device_us`` read
+after ``inference.download``), the mesh renderer's ``mesh.*`` and
+GAGAvatar's ``gaga.*``. A stage or span times the host and adds no
+synchronisation.
 
 Importing this module turns TF32 off for matmuls and cuDNN convolutions:
 greedy code bits flip under TF32 (through the wav2vec conv frontend, the
@@ -204,6 +206,7 @@ class ARTAvatarInferEngine:
         clip_length = clip_length if clip_length is not None else self.clip_length
         with GLOBAL_METRICS.span("inference.download"):
             motions = motions[0].cpu().numpy()
+        GLOBAL_METRICS.read_device_times()
         return motions[:clip_length]
 
     def stream(self, audio_chunks: Iterator[np.ndarray],

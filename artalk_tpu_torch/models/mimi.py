@@ -19,6 +19,14 @@ integer codes, so ``forward`` and ``encode_codes`` run with TF32 off even when
 the module is used without the engine (which turns it off on import). The
 distance is computed in that expanded form, not with ``torch.cdist``, so that
 argmin ties break as in JAX.
+
+``forward`` records four spans (``utils/metrics.GLOBAL_METRICS``), one per
+stage and call, each with ``rows`` (the batch) and ``frames`` (the stage's
+output length: 24 kHz samples, then 25 Hz frames, then 12.5 Hz frames):
+``mimi.resample``, ``mimi.seanet``, ``mimi.transformer`` and ``mimi.rvq``
+(the downsample, the RVQ encode and its decode). On a card each also times
+its stage on the device with CUDA events, read into ``device_us`` after the
+caller's download has waited for the device.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import MimiEncoderConfig
+from ..utils.metrics import GLOBAL_METRICS
 from . import nn as tnn
 from .wav2vec import _Conv
 
@@ -206,14 +215,18 @@ class MimiEncoder(nn.Module):
             x = x + tr.fc2(tnn.gelu_erf(tr.fc1(tr.norm2(x, n), n)), n) * tr.ls_mlp[n]
         return x
 
+    def quantize(self, emb: torch.Tensor) -> torch.Tensor:
+        """(B, hidden, T) at 25 Hz -> RVQ codes (B, num_quantizers, T / 2):
+        the replicate-padded stride-2 downsample, then the semantic and the
+        acoustic RVQ."""
+        emb = _causal_conv(self.downsample, emb, stride=2, pad_mode="replicate")
+        return torch.cat([self.semantic_rvq.encode(emb), self.acoustic_rvq.encode(emb)], dim=1)
+
     def encode_codes(self, audio_24k: torch.Tensor) -> torch.Tensor:
         """(B, T_samples) 24 kHz -> RVQ codes (B, num_quantizers, T_frames)."""
         with tnn.no_tf32():
             emb = self.seanet_encode(audio_24k)
-            emb = self.transform(emb.transpose(1, 2)).transpose(1, 2)
-            emb = _causal_conv(self.downsample, emb, stride=2, pad_mode="replicate")
-            return torch.cat([self.semantic_rvq.encode(emb), self.acoustic_rvq.encode(emb)],
-                             dim=1)
+            return self.quantize(self.transform(emb.transpose(1, 2)).transpose(1, 2))
 
     def decode_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """codes -> continuous embeddings (B, hidden, T): the semantic and
@@ -223,13 +236,33 @@ class MimiEncoder(nn.Module):
                 + self.acoustic_rvq.decode(codes[:, ns:]))
 
     def forward(self, audio_16k: torch.Tensor) -> torch.Tensor:
-        """16 kHz audio (B, T) -> (B, T_frames, hidden) embeddings at 12.5 Hz."""
+        """16 kHz audio (B, T) -> (B, T_frames, hidden) embeddings at 12.5 Hz:
+        the resampler, the stages of ``encode_codes`` and ``decode_codes``,
+        each stage in its span."""
+        device, rows = audio_16k.device, audio_16k.shape[0]
         with tnn.no_tf32():
-            codes = self.encode_codes(resample_16k_to_24k(audio_16k))
-            return self.decode_codes(codes).transpose(1, 2)
+            with GLOBAL_METRICS.span("mimi.resample", device=device, rows=rows) as sp:
+                x = resample_16k_to_24k(audio_16k)
+            _frames(sp, x)
+            with GLOBAL_METRICS.span("mimi.seanet", device=device, rows=rows) as sp:
+                x = self.seanet_encode(x)
+            _frames(sp, x)
+            with GLOBAL_METRICS.span("mimi.transformer", device=device, rows=rows) as sp:
+                x = self.transform(x.transpose(1, 2)).transpose(1, 2)
+            _frames(sp, x)
+            with GLOBAL_METRICS.span("mimi.rvq", device=device, rows=rows) as sp:
+                x = self.decode_codes(self.quantize(x))
+            _frames(sp, x)
+            return x.transpose(1, 2)
 
     def num_output_frames(self, num_samples_16k: int) -> int:
         return self.cfg.num_output_frames(num_samples_16k * 3 // 2)
+
+
+def _frames(span, x: torch.Tensor) -> None:
+    """A stage's ``frames`` attribute: the time steps of its output."""
+    if span is not None:
+        span.attrs["frames"] = x.shape[-1]
 
 
 def _resample_filter() -> np.ndarray:

@@ -15,6 +15,8 @@ one ``pool.tick`` (rows stepped = capacity, rows with audio), with the
 children ``pool.pack`` (the host buffer), ``pool.upload`` (its copy to the
 device), the window step's ``window.*`` and ``pool.download`` (the motion's
 copy to the host, which waits for the device; with the thread's CPU time).
+After the download the device-timed spans of the step (the Mimi encoder's
+stages) get their ``device_us``.
 
 With ``ARTALK_AR_PRECISION=fast`` or ``int8`` (``bf16_ar`` / ``int8_ar``) the
 batched decode runs the AR block-stack kernel at any batch; float32 packs
@@ -167,6 +169,7 @@ class StreamPool:
             _, motion = self.device_step(audio, stepped)
             with GLOBAL_METRICS.span("pool.download", cpu_time=True):
                 host_motion = motion.cpu().numpy()
+            GLOBAL_METRICS.read_device_times()
             return {sid: host_motion[sid, : math.ceil(n / self.sample_rate * self.fps)]
                     for sid, n in n_valid.items()}
 

@@ -35,15 +35,24 @@ child. While ``torch.compiler.is_compiling()`` (``torch.export`` included) a
 span records nothing and opens no range.
 
 Spans and stages time the host: CUDA work a span enqueues may finish after
-it closes, and the registry adds no synchronisation of its own. It is fed
+it closes, and the registry adds no synchronisation of its own. A span made
+with ``device=`` a CUDA device also records a CUDA event on that device's
+current stream at its start and at its end; ``read_device_times()``, called
+where the caller has already waited for the device (the stream pool's and
+the engine's downloads), gives each such span whose end event the device has
+passed the integer attribute ``device_us``: the microseconds between its two
+events, the stream's time for the work the span enqueued. It is fed
 from the HTTP server's threads too, so the counters, gauges and timings take
 a lock.
 
 The spans of the package, by module (``engine.py``, ``server.py``,
 ``serving.py`` and the models list theirs): ``http.*`` and ``batcher.*``
 (the HTTP front), ``pool.*`` (the stream pool), ``window.*`` (the window
-step), ``inference.download``, ``mesh.*`` and ``gaga.*`` (the renderers),
-and the engine's stages.
+step), ``mimi.*`` (the Mimi encoder's stages inside ``window.encode``:
+``mimi.resample``, ``mimi.seanet``, ``mimi.transformer`` and ``mimi.rvq``,
+each with ``rows`` and ``frames`` and, on a card, ``device_us``),
+``inference.download``, ``mesh.*`` and ``gaga.*`` (the renderers), and the
+engine's stages.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from typing import Collection, Deque, Dict, Iterator, List, Optional, Union
 import torch
 
 SPAN_RING = 65536      # spans kept; a 50-s stream run of 140 sessions makes about 12,000
+DEVICE_PENDING = 4096  # device-timed spans awaiting ``read_device_times``; older ones go
 TIMINGS_KEPT = 10000   # durations kept per stage for its p50 / p95
 
 NO_RANGE, RANGE, LATE_RANGE = 0, 1, 2
@@ -78,12 +88,14 @@ class Span:
     when it began (0: none), ``attrs`` its integer attributes."""
 
     __slots__ = ("name", "attrs", "start_ns", "end_ns", "cpu_ns", "thread", "id", "parent",
-                 "seq", "ranged", "_metrics", "_stack", "_cpu", "_cpu0", "_range")
+                 "seq", "ranged", "_metrics", "_stack", "_cpu", "_cpu0", "_range", "_device",
+                 "_event0")
 
     def __init__(self, metrics: "Metrics", name: str, attrs: Dict[str, int],
-                 cpu_time: bool = False):
+                 cpu_time: bool = False, device: Optional[torch.device] = None):
         self.name, self.attrs, self._metrics = name, attrs, metrics
         self.cpu_ns, self._cpu = None, cpu_time
+        self._device = device if device is not None and device.type == "cuda" else None
 
     @property
     def duration_ns(self) -> int:
@@ -119,9 +131,15 @@ class Span:
             self._range, self.ranged = rf, RANGE
         if self._cpu:
             self._cpu0 = thread_time_ns()
+        if self._device is not None:
+            self._event0 = _recorded_event(self._device)
         return self
 
     def __exit__(self, *exc) -> bool:
+        if self._device is not None:
+            end = _recorded_event(self._device)
+            with self._metrics._lock:
+                self._metrics._device_pending.append((self, self._event0, end))
         if self._range is not None:
             self._range.__exit__(None, None, None)
             self._range = None
@@ -135,6 +153,12 @@ class Span:
         return False
 
 
+def _recorded_event(device: torch.device) -> "torch.cuda.Event":
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 class Metrics:
     def __init__(self):
         self.counters: Dict[str, float] = defaultdict(float)
@@ -144,6 +168,7 @@ class Metrics:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._ring: Deque[Span] = deque(maxlen=SPAN_RING)
+        self._device_pending: Deque[tuple] = deque(maxlen=DEVICE_PENDING)
         self._ids = itertools.count(1)
         self._seq = itertools.count()
 
@@ -162,14 +187,30 @@ class Metrics:
 
     # ------------------------------------------------------------------ spans
 
-    def span(self, name: str, cpu_time: bool = False, **attrs: int):
+    def span(self, name: str, cpu_time: bool = False, device: Optional[torch.device] = None,
+             **attrs: int):
         """A span ``name`` around a ``with`` block (with the thread's CPU time
-        where ``cpu_time``); ``as`` gives the Span, whose ``attrs`` the block
-        may still fill. Inside a compiled or exported region, a context that
-        records nothing (``as`` gives None)."""
+        where ``cpu_time``, and CUDA events around it where ``device`` is a
+        CUDA device: see ``read_device_times``); ``as`` gives the Span, whose
+        ``attrs`` the block may still fill. Inside a compiled or exported
+        region, a context that records nothing (``as`` gives None)."""
         if _is_compiling():
             return contextlib.nullcontext()
-        return Span(self, name, attrs, cpu_time)
+        return Span(self, name, attrs, cpu_time, device)
+
+    def read_device_times(self) -> None:
+        """Give each span recorded with a CUDA ``device`` whose end event the
+        device has passed its ``device_us`` attribute; the others wait for a
+        later call. Adds no synchronisation: call it where the device has
+        been waited for."""
+        with self._lock:
+            pending = list(self._device_pending)
+            self._device_pending.clear()
+            for sp, start, end in pending:
+                if end.query():
+                    sp.attrs["device_us"] = int(round(start.elapsed_time(end) * 1e3))
+                else:
+                    self._device_pending.append((sp, start, end))
 
     def record_span(self, name: str, start_ns: int, end_ns: int, **attrs: int) -> Span:
         """Keep a span whose interval was stamped elsewhere, for instance its
@@ -241,6 +282,7 @@ class Metrics:
             self.timings.clear()
             self.timing_counts.clear()
             self._ring.clear()
+            self._device_pending.clear()
             self._seq = itertools.count()
 
 
