@@ -17,22 +17,27 @@
 // TF32 on the tensor cores, 67 fp32 outside them): the weights, 12 blocks x
 // 7,077,888 = 84.9 M, are read once per call: 340 MB in fp32 (0.101 ms), 170
 // MB in bf16 (0.051 ms), 85 MB in int8 (0.025 ms), all more than the 50 MB L2.
-// The products cost 2 x 84.9 M x pn FLOP; only the float32 pack at pn = 100
-// (three TF32 products each, 0.103 ms) comes near its bytes.
+// The products cost 2 x 84.9 M x B x pn FLOP: at B = 1 only the float32 pack
+// at pn = 100 (three TF32 products each, 0.103 ms) comes near its bytes; at
+// the serving batches (B x pn = 140 to 40,800 rows a level) every bf16 and
+// int8 product is a compute-bound matrix product.
 //
-// What the design does about it (csrc/mma_stages.cuh): the products run on
-// the tensor cores (mma.sync: bf16 for bf16 and int8 packs, whose reference
-// rounds both operands to bf16, with a fresh accumulator per 64-deep step
-// and, for int8, one scaled sum per d-deep scale chunk; 3xTF32 for float32)
-// in tiles of BM rows, 32 for levels of at most 64 tokens and 128 above (the
-// wrapper picks BM from pn, never from the batch), 64 columns wide (32 for
-// the unsplit q/k/v and fc1 when their items then still fit the grid),
-// through a cp.async ring in the pack's type that loads no operand row past
-// the level's tokens, so a weight moves from memory once per call in its
-// pack's width. One persistent cooperative grid of one CTA per SM walks each
-// stage's items. Weights depend on no activation, so before each grid
-// barrier a CTA issues the first kPrefetch weight tiles of its first item of
-// the next product (prefetch_weights), which then stream in while it waits.
+// What the design does about it: the bf16 and int8 packs' products run on
+// the warpgroup tensor-core engine of wgmma_gemm.cuh (bf16 operands, whose
+// reference rounds both to bf16, a fresh sum per 64-deep step and, for int8,
+// one scaled sum per d-deep scale chunk), weights streamed by TMA in the
+// pack's width, in tiles whose plan (ops/ar_block_stack.gemm_plan) comes
+// from the launch's rows: warpgroup items of 64 rows x 64 columns for a
+// level of few rows, 64 x 128 CTA items where they fill the grid, and the
+// projection's and fc2's splits added inside the CTA (one plane for the row
+// pass) where the unsplit tiles alone fill it. Float32 packs keep the 3xTF32
+// mma.sync stage of mma_stages.cuh in tiles of BM rows, 32 for levels of at
+// most 64 tokens and 128 above (from pn), 64 columns wide (32 for the unsplit
+// q/k/v and fc1 when their items then still fit the grid), through a cp.async
+// ring; before each grid barrier a CTA issues the first kPrefetch weight
+// tiles of its first item of the next product (prefetch_weights), which then
+// stream in while it waits. One persistent cooperative grid of one CTA per
+// SM walks each stage's items.
 // Per block seven barriers separate: q/k/v | attention | the output
 // projection | its row pass | fc1 + tanh GELU | fc2 | its row pass, which
 // also writes the next block's modulated LayerNorm (84 a launch; the
@@ -48,13 +53,13 @@
 // between the eight warps) and on the CUDA cores for float32 packs
 // (block_stack_common.cuh); it writes its output in the operand type and k^
 // and v in the cache type. Each batch row's result does not depend on the
-// others: every row is computed in the same order whatever B is, and the
-// split counts (ops/ar_block_stack.contraction_splits) come from pn alone.
+// others: every row is computed in the same order whatever B is, the tile
+// plan changes no row's arithmetic, and the split counts
+// (ops/ar_block_stack.contraction_splits) come from pn alone.
 // The Pallas kernel's (d, TW) tile stream, its padding of pn to 16 rows and
 // its batch tiling were Mosaic/VMEM artefacts and are gone.
-// At these sizes each of the seven stages is bound by latency, not by bytes
-// or operations (a few items a CTA, a warp's serial chain of mma.sync per
-// 64-deep step; PERF.md §6).
+// At B = 1 each of the seven stages is bound by latency, not by bytes or
+// operations (a few items a CTA; PERF.md §6).
 
 #include "mma_stages.cuh"
 
@@ -88,9 +93,18 @@ struct ArParams {
   long long* prof;      // null, or 13 profile counters (stage_times in the wrapper)
   int B, pn, d, H, hidden, depth, cache_len, start;
   int wtype, ctype;     // 0 f32, 1 bf16, 2 int8 / 0 f32, 1 bf16
-  int bm;               // rows of a product tile: 32 or 128
+  int bm;               // float32 packs: rows of a product tile, 32 or 128
   int ln_width;         // threads of torch's LayerNorm reduction for pn rows
   int sp_proj, sp_fc2;  // contraction splits of the projection and fc2
+  // bf16 / int8 packs: the wgmma engine's plan of q/k/v, the projection,
+  // fc1 and fc2 (enc::Plan bits, ops/ar_block_stack.gemm_plan)
+  int plan_qkv, plan_proj, plan_fc1, plan_fc2;
+};
+
+// The tensor maps of the wgmma engine's operands (bf16 and int8 packs): the
+// rows of xa, attn and h, and the four weight stacks.
+struct ArMaps {
+  CUtensorMap xa, attn, h, wqkv, wproj, wfc1, wfc2;
 };
 
 namespace {
@@ -105,10 +119,14 @@ constexpr int kPrefetch = 2;
 enum Stage { kRowPass = 0, kQkv, kAttention, kProj, kFc1, kFc2, kStages };
 constexpr int kBarriers = 2 * kStages;
 
-// the product tiles of BM rows: a ring of 8 stages of 32 rows or 4 of 128
-// (110.6 KB either way for bf16 and float32 packs)
-template <typename WT, int BM, int BN = kBN>
-using ArTiles = enc::Tiles<WT, BM, BN, BM == 32 ? 8 : 4>;
+// the wgmma engine's ring (bf16 / int8 packs): 96 KB, so that with its sums
+// the kernel's shared memory stays at 160 KB and L1 keeps the rest of the SM's
+// 256 KB for the attention's and row passes' loads and spilled registers
+constexpr int kRingKB = 96;
+// float32 packs' product tiles of BM rows: a ring of 8 stages of 32 rows or
+// 4 of 128 (110.6 KB either way)
+template <int BM, int BN = kBN>
+using ArTiles = enc::Tiles<BM, BN, BM == 32 ? 8 : 4>;
 // q/k/v and fc1 are not split (their consumers need whole sums); their tiles
 // are half as wide when that still gives every item a CTA of the grid, so
 // that twice the CTAs stream their weights. The width does not change any
@@ -124,18 +142,17 @@ __host__ __device__ inline bool attention_on_tensor_cores(const ArParams& p) {
   return p.wtype != 0 && p.ctype == 1 && p.d == kTcHeadDim * p.H;
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 template <typename WT, int BM>
-__global__ void __launch_bounds__(enc::kThreads, 1) ar_kernel(ArParams p) {
-  using T = ArTiles<WT, BM>;
-  using AT = typename T::A;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* scratch = smem + T::kBytes;   // attention and row passes; the ring stays
+__global__ void __launch_bounds__(enc::kThreads, 1)
+    ar_kernel(ArParams p, const __grid_constant__ ArMaps maps) {
+  // bf16 / int8 packs: the wgmma engine, whose ring shares shared memory with
+  // the attention and the row passes; float32 packs: the mma.sync ring,
+  // which stays across the barriers with the prefetched weight tiles
+  constexpr bool kWg = sizeof(WT) != sizeof(float);
+  using T = ArTiles<BM>;
+  using AT = enc::Operand<WT>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* scratch = kWg ? smem : smem + T::kBytes;
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int M = p.B * p.pn, d = p.d, hid = p.hidden;
   const WT* wqkv = static_cast<const WT*>(p.wqkv);
@@ -143,51 +160,70 @@ __global__ void __launch_bounds__(enc::kThreads, 1) ar_kernel(ArParams p) {
   const WT* wfc1 = static_cast<const WT*>(p.wfc1);
   const WT* wfc2 = static_cast<const WT*>(p.wfc2);
   const bool clock = p.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
-  unsigned long long last = clock ? global_ns() : 0;
+  unsigned long long last = clock ? enc::global_ns() : 0;
   auto sync = [&](int stage) {
-    const unsigned long long arrive = clock ? global_ns() : 0;
+    const unsigned long long arrive = clock ? enc::global_ns() : 0;
     grid.sync();
     if (clock) {
-      const unsigned long long now = global_ns();
+      const unsigned long long now = enc::global_ns();
       p.prof[stage] += static_cast<long long>(arrive - last);
       p.prof[kStages + stage] += static_cast<long long>(now - arrive);
       p.prof[kBarriers] += 1;
       last = now;
     }
   };
+  // the row pass after a split product reads one plane when it was folded
+  const int rows_proj = p.plan_proj & enc::kFold ? 1 : p.sp_proj;
+  const int rows_fc2 = p.plan_fc2 & enc::kFold ? 1 : p.sp_fc2;
   auto product = [&](int i, int which) -> enc::MmaGemm {
     const size_t di = static_cast<size_t>(i) * d;
+    enc::MmaGemm g;
     switch (which) {
       case kQkv:
-        return {M, 3 * d, d, p.xa, wqkv + di * 3 * d, p.sqkv ? p.sqkv + 3 * di : nullptr, d, 1,
-                enc::kBiasF32, p.bqkv + 3 * di, p.qkv, nullptr};
+        g = {M, 3 * d, d, p.xa, wqkv + di * 3 * d, p.sqkv ? p.sqkv + 3 * di : nullptr, d, 1,
+             enc::kBiasF32, p.bqkv + 3 * di, p.qkv, nullptr, &maps.xa, &maps.wqkv, i,
+             p.plan_qkv};
+        break;
       case kProj:
-        return {M, d, d, p.attn, wproj + di * d, p.sproj ? p.sproj + di : nullptr, d,
-                p.sp_proj, enc::kPartial, nullptr, nullptr, p.partial};
+        g = {M, d, d, p.attn, wproj + di * d, p.sproj ? p.sproj + di : nullptr, d, p.sp_proj,
+             enc::kPartial, nullptr, nullptr, p.partial, &maps.attn, &maps.wproj, i,
+             p.plan_proj};
+        break;
       case kFc1:
-        return {M, hid, d, p.xa, wfc1 + di * hid,
-                p.sfc1 ? p.sfc1 + static_cast<size_t>(i) * hid : nullptr, d, 1, enc::kGeluTanh,
-                p.bfc1 + static_cast<size_t>(i) * hid, p.h, nullptr};
+        g = {M, hid, d, p.xa, wfc1 + di * hid,
+             p.sfc1 ? p.sfc1 + static_cast<size_t>(i) * hid : nullptr, d, 1, enc::kGeluTanh,
+             p.bfc1 + static_cast<size_t>(i) * hid, p.h, nullptr, &maps.xa, &maps.wfc1, i,
+             p.plan_fc1};
+        break;
       default:  // fc2; int8 scales (hid / d) x d
-        return {M, d, hid, p.h, wfc2 + di * hid,
-                p.sfc2 ? p.sfc2 + static_cast<size_t>(i) * hid : nullptr, d, p.sp_fc2,
-                enc::kPartial, nullptr, nullptr, p.partial};
+        g = {M, d, hid, p.h, wfc2 + di * hid,
+             p.sfc2 ? p.sfc2 + static_cast<size_t>(i) * hid : nullptr, d, p.sp_fc2,
+             enc::kPartial, nullptr, nullptr, p.partial, &maps.h, &maps.wfc2, i, p.plan_fc2};
     }
+    return g;
   };
   auto narrow = [&](const enc::MmaGemm& g) {
     return g.splits == 1 && (g.M + BM - 1) / BM * (g.N / kNarrowBN) <= static_cast<int>(gridDim.x);
   };
   auto gemm = [&](const enc::MmaGemm& g) {
-    if (narrow(g))
-      enc::mma_gemm<WT, BM, kNarrowBN, T::kStages, kPrefetch>(g, smem, true);
-    else
-      enc::mma_gemm<WT, BM, kBN, T::kStages, kPrefetch>(g, smem, true);
+    if constexpr (kWg) {
+      enc::wg_gemm<WT, kRingKB>(g, smem);
+    } else {
+      if (narrow(g))
+        enc::mma_gemm_f32<BM, kNarrowBN, T::kStages, kPrefetch>(g, smem, true);
+      else
+        enc::mma_gemm_f32<BM, kBN, T::kStages, kPrefetch>(g, smem, true);
+    }
   };
   auto prefetch = [&](const enc::MmaGemm& g) {
-    if (narrow(g))
-      enc::prefetch_weights<WT, BM, kNarrowBN, T::kStages, kPrefetch>(g, smem);
-    else
-      enc::prefetch_weights<WT, BM, kBN, T::kStages, kPrefetch>(g, smem);
+    if constexpr (kWg) {
+      enc::wg_prefetch(g);
+    } else {
+      if (narrow(g))
+        enc::prefetch_weights<BM, kNarrowBN, T::kStages, kPrefetch>(g, smem);
+      else
+        enc::prefetch_weights<BM, kBN, T::kStages, kPrefetch>(g, smem);
+    }
   };
 
   // the first block's modulated LN1 of the input rows
@@ -196,96 +232,118 @@ __global__ void __launch_bounds__(enc::kThreads, 1) ar_kernel(ArParams p) {
                          p.ada + 4 * d, 6 * d, eps, p.ln_width, p.xa}, scratch);
   prefetch(product(0, kQkv));
   sync(kRowPass);
+  // Per block its seven stages, walked by one loop so that the product stage
+  // has one call site (inlined once: a product engine called as a function
+  // would serialise its wgmma instructions)
+  constexpr int kOrder[7] = {kQkv, kAttention, kProj, kRowPass, kFc1, kFc2, kRowPass};
+#pragma unroll 1
   for (int i = 0; i < p.depth; ++i) {
     const float* x = i == 0 ? p.x : p.feats;
     const float* ada = p.ada + static_cast<size_t>(i) * M * 6 * d;
     const bool last = i + 1 == p.depth;
-
-    gemm(product(i, kQkv));
-    prefetch(product(i, kProj));
-    sync(kQkv);
-
-    const size_t cache_block = static_cast<size_t>(i) * p.B * p.cache_len * d;
-    const size_t new_block = static_cast<size_t>(i) * M * d;
-    if (attention_on_tensor_cores(p)) {
-      enc::ar_tc_attention<kTcHeadDim>(
-          {p.B, p.pn, p.H, d, p.start, static_cast<const __nv_bfloat16*>(p.kc) + cache_block,
-           static_cast<const __nv_bfloat16*>(p.vc) + cache_block,
-           static_cast<long long>(p.cache_len) * d, p.qkv, p.qscale + i * p.H,
-           static_cast<__nv_bfloat16*>(p.attn), static_cast<__nv_bfloat16*>(p.k_new) + new_block,
-           static_cast<__nv_bfloat16*>(p.v_new) + new_block}, scratch);
-    } else {
-      bs::Attn a{};
-      a.B = p.B; a.T = p.pn; a.H = p.H; a.hd = d / p.H; a.d = d;
-      a.prefix = p.start;
-      a.cache_b_stride = static_cast<long long>(p.cache_len) * d;
-      a.q = p.qkv; a.k = p.qkv + d; a.v = p.qkv + 2 * d; a.ld = 3 * d;
-      a.l2norm = 1; a.qscale = p.qscale + i * p.H; a.logit_scale = 1.0f;
-      a.round = sizeof(WT) != sizeof(float); a.out = p.attn;
-      float* attn_smem = reinterpret_cast<float*>(scratch);
-      if (p.ctype == 0) {
-        a.kc = static_cast<const float*>(p.kc) + cache_block;
-        a.vc = static_cast<const float*>(p.vc) + cache_block;
-        a.k_out = static_cast<float*>(p.k_new) + new_block;
-        a.v_out = static_cast<float*>(p.v_new) + new_block;
-        bs::attention<float, AT>(a, attn_smem);
+#pragma unroll 1
+    for (int st = 0; st < 7; ++st) {
+      const int which = kOrder[st];
+      if (which == kQkv || which == kProj || which == kFc1 || which == kFc2) {
+        gemm(product(i, which));
+        // the next product's first weight tiles, before the barrier
+        if (which != kFc2)
+          prefetch(product(i, which == kQkv ? kProj : which == kProj ? kFc1 : kFc2));
+        else if (!last)
+          prefetch(product(i + 1, kQkv));
+      } else if (which == kAttention) {
+        const size_t cache_block = static_cast<size_t>(i) * p.B * p.cache_len * d;
+        const size_t new_block = static_cast<size_t>(i) * M * d;
+        if (attention_on_tensor_cores(p)) {
+          enc::ar_tc_attention<kTcHeadDim>(
+              {p.B, p.pn, p.H, d, p.start, static_cast<const __nv_bfloat16*>(p.kc) + cache_block,
+               static_cast<const __nv_bfloat16*>(p.vc) + cache_block,
+               static_cast<long long>(p.cache_len) * d, p.qkv, p.qscale + i * p.H,
+               static_cast<__nv_bfloat16*>(p.attn),
+               static_cast<__nv_bfloat16*>(p.k_new) + new_block,
+               static_cast<__nv_bfloat16*>(p.v_new) + new_block}, scratch);
+        } else {
+          bs::Attn a{};
+          a.B = p.B; a.T = p.pn; a.H = p.H; a.hd = d / p.H; a.d = d;
+          a.prefix = p.start;
+          a.cache_b_stride = static_cast<long long>(p.cache_len) * d;
+          a.q = p.qkv; a.k = p.qkv + d; a.v = p.qkv + 2 * d; a.ld = 3 * d;
+          a.l2norm = 1; a.qscale = p.qscale + i * p.H; a.logit_scale = 1.0f;
+          a.round = sizeof(WT) != sizeof(float); a.out = p.attn;
+          float* attn_smem = reinterpret_cast<float*>(scratch);
+          if (p.ctype == 0) {
+            a.kc = static_cast<const float*>(p.kc) + cache_block;
+            a.vc = static_cast<const float*>(p.vc) + cache_block;
+            a.k_out = static_cast<float*>(p.k_new) + new_block;
+            a.v_out = static_cast<float*>(p.v_new) + new_block;
+            bs::attention<float, AT>(a, attn_smem);
+          } else {
+            a.kc = static_cast<const __nv_bfloat16*>(p.kc) + cache_block;
+            a.vc = static_cast<const __nv_bfloat16*>(p.vc) + cache_block;
+            a.k_out = static_cast<__nv_bfloat16*>(p.k_new) + new_block;
+            a.v_out = static_cast<__nv_bfloat16*>(p.v_new) + new_block;
+            bs::attention<__nv_bfloat16, AT>(a, attn_smem);
+          }
+        }
+      } else if (st == 3) {
+        // x + (attn Wproj + b) gate1 -> feats; LN2 modulated by scale2, shift2
+        enc::ada_row_pass<AT>({M, d, p.partial, rows_proj, p.bproj + static_cast<size_t>(i) * d,
+                               x, ada, p.feats, ada + 3 * d, ada + 5 * d, 6 * d, eps,
+                               p.ln_width, p.xa},
+                              scratch);
       } else {
-        a.kc = static_cast<const __nv_bfloat16*>(p.kc) + cache_block;
-        a.vc = static_cast<const __nv_bfloat16*>(p.vc) + cache_block;
-        a.k_out = static_cast<__nv_bfloat16*>(p.k_new) + new_block;
-        a.v_out = static_cast<__nv_bfloat16*>(p.v_new) + new_block;
-        bs::attention<__nv_bfloat16, AT>(a, attn_smem);
+        // feats + (h Wfc2 + b) gate2 -> feats; the next block's LN1
+        const float* next = p.ada + static_cast<size_t>(i + 1) * M * 6 * d;
+        enc::ada_row_pass<AT>({M, d, p.partial, rows_fc2, p.bfc2 + static_cast<size_t>(i) * d,
+                               p.feats, ada + d, p.feats, last ? nullptr : next + 2 * d,
+                               last ? nullptr : next + 4 * d, 6 * d, eps, p.ln_width, p.xa},
+                              scratch);
       }
+      if (!(last && st == 6)) sync(which);
     }
-    sync(kAttention);
-
-    gemm(product(i, kProj));
-    prefetch(product(i, kFc1));
-    sync(kProj);
-    // x + (attn Wproj + b) gate1 -> feats; LN2 modulated by scale2, shift2
-    enc::ada_row_pass<AT>({M, d, p.partial, p.sp_proj, p.bproj + static_cast<size_t>(i) * d,
-                           x, ada, p.feats, ada + 3 * d, ada + 5 * d, 6 * d, eps, p.ln_width,
-                           p.xa},
-                          scratch);
-    sync(kRowPass);
-
-    gemm(product(i, kFc1));
-    prefetch(product(i, kFc2));
-    sync(kFc1);
-    gemm(product(i, kFc2));
-    if (!last) prefetch(product(i + 1, kQkv));
-    sync(kFc2);
-    // feats + (h Wfc2 + b) gate2 -> feats; the next block's LN1
-    const float* next = p.ada + static_cast<size_t>(i + 1) * M * 6 * d;
-    enc::ada_row_pass<AT>({M, d, p.partial, p.sp_fc2, p.bfc2 + static_cast<size_t>(i) * d,
-                           p.feats, ada + d, p.feats, last ? nullptr : next + 2 * d,
-                           last ? nullptr : next + 4 * d, 6 * d, eps, p.ln_width, p.xa},
-                          scratch);
-    if (!last) sync(kRowPass);
   }
-  if (clock) p.prof[kRowPass] += static_cast<long long>(global_ns() - last);
+  if (clock) p.prof[kRowPass] += static_cast<long long>(enc::global_ns() - last);
 }
 
 template <typename WT, int BM>
 int launch(const ArParams& p, cudaStream_t stream) {
-  using T = ArTiles<WT, BM>;
+  constexpr bool kWg = sizeof(WT) != sizeof(float);
   const int attn = attention_on_tensor_cores(p) ? enc::ar_attn_bytes<kTcHeadDim>(p.start + p.pn)
                                    : bs::attn_smem_floats(p.start + p.pn, p.d / p.H) *
                                          static_cast<int>(sizeof(float));
   const int rows = (5 * enc::kThreads + 1) * static_cast<int>(sizeof(float));
-  const int bytes = T::kBytes + (attn > rows ? attn : rows);
-  return bs::launch_cooperative(ar_kernel<WT, BM>, p, (bytes + 3) / 4, stream);
+  const int scratch = attn > rows ? attn : rows;
+  int bytes = ArTiles<BM>::kBytes + scratch;
+  ArMaps maps{};
+  if constexpr (kWg) {
+    using R = enc::Ring<WT, kRingKB>;
+    bytes = R::kBytes > scratch ? R::kBytes : scratch;
+    const int m = p.B * p.pn < 64 ? 64 : p.B * p.pn;   // the wrapper allocates >= 64 rows
+    if (!enc::rows_map(&maps.xa, p.xa, m, p.d) || !enc::rows_map(&maps.attn, p.attn, m, p.d) ||
+        !enc::rows_map(&maps.h, p.h, m, p.hidden) ||
+        !enc::weight_map<WT>(&maps.wqkv, p.wqkv, p.depth, p.d, 3 * p.d) ||
+        !enc::weight_map<WT>(&maps.wproj, p.wproj, p.depth, p.d, p.d) ||
+        !enc::weight_map<WT>(&maps.wfc1, p.wfc1, p.depth, p.d, p.hidden) ||
+        !enc::weight_map<WT>(&maps.wfc2, p.wfc2, p.depth, p.hidden, p.d))
+      return enc::kNoTensorMap;
+  }
+  return bs::launch_cooperative(ar_kernel<WT, BM>, p, maps, (bytes + 3) / 4, stream);
 }
 
 template <typename WT>
 int dispatch_rows(const ArParams& p, cudaStream_t stream) {
-  return p.bm == 32 ? launch<WT, 32>(p, stream) : launch<WT, 128>(p, stream);
+  // bf16 / int8 packs: the wgmma engine's tiles come from the plans, not BM
+  if constexpr (sizeof(WT) != sizeof(float))
+    return launch<WT, 128>(p, stream);
+  else
+    return p.bm == 32 ? launch<WT, 32>(p, stream) : launch<WT, 128>(p, stream);
 }
 
 }  // namespace
 
-// Plain C entry point. Returns 0 on success, a cudaError_t code, or
-// bs::kNotCoResident (-1) when the grid cannot be co-resident. It does not
+// Plain C entry point. Returns 0 on success, a cudaError_t code,
+// bs::kNotCoResident (-1) when the grid cannot be co-resident, or
+// enc::kNoTensorMap (-2) when a tensor map cannot be made. It does not
 // synchronise and allocates nothing.
 extern "C" int artalk_ar_block_stack(const ArParams* p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -223,9 +223,10 @@ __device__ void attention(const Attn& a, float* smem) {
 }
 
 // Dynamic shared memory, grid size and cooperative launch of a block-stack
-// kernel: as many CTAs as can be co-resident, at most two per SM.
-template <typename Kernel, typename Params>
-int launch_cooperative(Kernel kernel, const Params& params, int smem_floats, cudaStream_t stream) {
+// kernel(params, maps): as many CTAs as can be co-resident, at most two per SM.
+template <typename Kernel, typename Params, typename Maps>
+int launch_cooperative(Kernel kernel, const Params& params, const Maps& maps, int smem_floats,
+                       cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -239,7 +240,8 @@ int launch_cooperative(Kernel kernel, const Params& params, int smem_floats, cud
     return static_cast<int>(err);
   if (per_sm < 1) return kNotCoResident;
   Params copy = params;
-  void* args[] = {&copy};
+  Maps maps_copy = maps;
+  void* args[] = {&copy, &maps_copy};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(sms * (per_sm < 2 ? per_sm : 2)), dim3(kThreads),
                                     args, smem, stream);

@@ -1,145 +1,62 @@
-// Tensor-core stages of the two block-stack kernels (encoder_block_stack.cu,
-// ar_block_stack.cu): a matrix product fed by a cp.async ring with its
-// epilogue folded in, whose first weight tiles a CTA may issue before it
-// waits at a grid barrier; the row passes that add the split partial sums,
-// the bias and the residual and write the next product's operand (the
-// encoder's affine LayerNorm, the AR blocks' AdaLN-modulated one); and the
-// bf16 attention stages of both on the tensor cores.
+// Stages of the two block-stack kernels (encoder_block_stack.cu,
+// ar_block_stack.cu): the float32 packs' matrix product on the tensor cores,
+// fed by a cp.async ring with its epilogue folded in, whose first weight
+// tiles a CTA may issue before it waits at a grid barrier (bf16 and int8
+// packs run wgmma_gemm.cuh's engine); the row passes that add the split
+// partial sums, the bias and the residual and write the next product's
+// operand (the encoder's affine LayerNorm, the AR blocks' AdaLN-modulated
+// one); and the bf16 attention stages of both on the tensor cores.
 //
 // Operands. A product's A operand is prepared once by the stage that makes
 // it (a row pass, an attention stage, the fc1 epilogue) in the operand type
 // of the pack: bf16 for bf16 and int8 packs (the value the reference rounds
-// to), float32 for float32 packs. Weights stay in the pack's type in shared
-// memory; int8 tiles are widened to bf16 there, which is exact.
-// Arithmetic:
-//   bf16 / int8: mma.sync m16n8k16 bf16 with a float32 accumulator, each
-//     64-deep step's sum from zero and added to the running sum in float32;
-//     for int8 one running sum per scale chunk of the contraction, scaled and
-//     added in order;
-//   float32: 3xTF32, mma.sync m16n8k8: each operand x = hi + lo (hi the TF32
-//     rounding of x, lo that of the rest) and a product is hi.hi + (lo.hi +
-//     hi.lo), the cross terms in an accumulator of their own so that they
-//     round against their own size (lo.lo, below 2^-22 of it, is dropped).
+// to), float32 for float32 packs.
+// Arithmetic of the float32 product: 3xTF32, mma.sync m16n8k8: each operand
+// x = hi + lo (hi the TF32 rounding of x, lo that of the rest) and a product
+// is hi.hi + (lo.hi + hi.lo), the cross terms in an accumulator of their own
+// so that they round against their own size (lo.lo, below 2^-22 of it, is
+// dropped).
 // Every output element is computed from its own row alone, in a k order
 // that depends on the product's shape and the split count only, so a row's
 // result does not depend on the batch or on the row tile it falls in.
 
 #pragma once
 
-#include <type_traits>
-
-#include "block_stack_common.cuh"
-#include "mma_ptx.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace enc {
 
-using namespace ptx;
-
-constexpr int kThreads = bs::kThreads;
-constexpr int kWarps = bs::kWarps;
 constexpr int kNT = 4;         // n8 tiles of a warp: a warp takes 32 columns
 constexpr int kQRows = 128;    // query rows of an attention item: 8 warps of 16
 constexpr int kKeyChunk = 32;  // keys per step of the attention's walk
 
-// kBias / kGelu / kGeluTanh: bias (and GELU) added, stored in the operand
-// type; kBiasF32: bias added, stored in float32; kPartial: the split's
-// float32 sum to partial[split], for a row pass to add
-enum Epi { kBias = 0, kGelu = 1, kPartial = 2, kGeluTanh = 3, kBiasF32 = 4 };
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
 // ---------------------------------------------------------------------------
-// Products
+// Products of float32 packs
 // ---------------------------------------------------------------------------
 
-// Tiles of a pack type WT, BM rows, BN (128 or 64) columns and a ring of
-// STAGES in shared memory: the operand type A, the depth of a step kBK, row
-// pitches (in elements) padded by 16 bytes so that the fragment loads of a
-// warp hit distinct banks, and the warps' layout: BN / 32 warps across, each
-// warp kMT m16 tiles by 32 columns; when BM has fewer m16 tiles than there
-// are warp rows, only the first kActiveM warp rows multiply.
-template <typename WT, int BM, int BN, int STAGES>
+// Tiles of BM rows, BN (64 or 32) columns and a ring of STAGES in shared
+// memory: the depth of a step kBK, row pitches (in floats) padded so that
+// the fragment loads of a warp hit distinct banks, and the warps' layout:
+// BN / 32 warps across, each warp kMT m16 tiles by 32 columns; when BM has
+// fewer m16 tiles than there are warp rows, only the first kActiveM warp
+// rows multiply.
+template <int BM, int BN, int STAGES>
 struct Tiles {
-  using A = typename std::conditional<sizeof(WT) == 4, float, __nv_bfloat16>::type;
   static constexpr int kBM = BM;
   static constexpr int kBN = BN;
   static constexpr int kStages = STAGES;
   static constexpr int kWarpsM = kWarps / (BN / 32);
   static constexpr int kMT = BM / (16 * kWarpsM) > 0 ? BM / (16 * kWarpsM) : 1;
   static constexpr int kActiveM = BM / 16 < kWarpsM ? BM / 16 : kWarpsM;
-  static constexpr int kBK = sizeof(WT) == 4 ? 32 : 64;
-  static constexpr int kAP = kBK + 16 / static_cast<int>(sizeof(A));   // A: [BM][kAP]
-  // W: [kBK][kWP] in WT; float32 rows 8 floats longer, so that the (k, n)
-  // fragment loads of a warp (8 k rows apart by 4) fall in 32 distinct banks
-  static constexpr int kWP = BN + (sizeof(WT) == 4 ? 8 : 16 / static_cast<int>(sizeof(WT)));
-  static constexpr int kCP = BN + 8;                 // int8: widened W, [kBK][kCP] bf16
-  static constexpr int kABytes = BM * kAP * static_cast<int>(sizeof(A));
-  static constexpr int kWBytes = kBK * kWP * static_cast<int>(sizeof(WT));
-  static constexpr int kConvBytes = sizeof(WT) == 1 ? kBK * kCP * 2 : 0;
-  static constexpr int kBytes = kStages * (kABytes + kWBytes) + kConvBytes;
+  static constexpr int kBK = 32;
+  static constexpr int kAP = kBK + 4;   // A: [BM][kAP]
+  // W: [kBK][kWP]; rows 8 floats longer, so that the (k, n) fragment loads
+  // of a warp (8 k rows apart by 4) fall in 32 distinct banks
+  static constexpr int kWP = BN + 8;
+  static constexpr int kABytes = BM * kAP * 4;
+  static constexpr int kWBytes = kBK * kWP * 4;
+  static constexpr int kBytes = kStages * (kABytes + kWBytes);
 };
-
-// out = epi(A[M, K] @ W[K, N] + bias) for A and W of the pack's operand and
-// weight types; with splits > 1 (kPartial) the float32 partial sums of each
-// split go to partial[split][M][N] for the row pass to add. An int8 sum is
-// scaled at the end of each scale chunk (`chunk` rows of the contraction).
-struct MmaGemm {
-  int M, N, K;
-  const void* a;        // (M, K) operand rows, row stride K
-  const void* w;        // (K, N) in the pack's type
-  const float* scales;  // int8 packs: (K / chunk, N); else unused
-  int chunk;
-  int splits;
-  int epi;
-  const float* bias;    // (N), all but kPartial
-  void* out;            // (M, N): the operand type, float32 for kBiasF32
-  float* partial;       // kPartial
-};
-
-// acc += the warp's (16 kMT) x 32 slice of As[BM][64] @ Ws[64][BN] (bf16);
-// warp w takes rows (w % kWarpsM) 16 kMT and columns (w / kWarpsM) 32. The
-// fragments of kBatch 16-deep sub-steps are loaded before their products
-// (each accumulator still takes its sub-steps in order): a warp's ldmatrix
-// and mma.sync run in program order, so loading ahead is what overlaps
-// their latencies when a CTA has few warps with rows (PERF.md §6).
-template <int kMT, int kWarpsM>
-__device__ __forceinline__ void mma_step(const __nv_bfloat16* as, int ap,
-                                         const __nv_bfloat16* ws, int wp,
-                                         float (&acc)[kMT][kNT][4], float (&)[kMT][kNT][4]) {
-  constexpr int kBatch = kMT == 1 ? 4 : kMT == 2 ? 2 : 1;   // registers allowing
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (warp % kWarpsM) * kMT * 16, c0 = (warp / kWarpsM) * kNT * 8;
-#pragma unroll
-  for (int k0 = 0; k0 < 64 / 16; k0 += kBatch) {
-    uint32_t a[kBatch][kMT][4], b[kBatch][kNT / 2][4];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int kk = k0 + u;
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        ldsm_x4(a[u][mt], as + (r0 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ap +
-                              kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int dp = 0; dp < kNT / 2; ++dp)
-        ldsm_x4_trans(b[u][dp], ws + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * wp + c0 +
-                                    dp * 16 + (lane >> 4) * 8);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-#pragma unroll
-      for (int dp = 0; dp < kNT / 2; ++dp)
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[mt][2 * dp], a[u][mt], b[u][dp][0], b[u][dp][1]);
-          mma_bf16(acc[mt][2 * dp + 1], a[u][mt], b[u][dp][2], b[u][dp][3]);
-        }
-  }
-}
 
 // acc += hi.hi and small += lo.hi + hi.lo over the warp's slice of
 // As[BM][32] @ Ws[32][BN] (3xTF32)
@@ -177,24 +94,10 @@ __device__ __forceinline__ void mma_step(const float* as, int ap, const float* w
   }
 }
 
-// int8 tile [kBK][kWP] -> bf16 [kBK][kCP], four values a thread at a time
-template <typename T>
-__device__ __forceinline__ void widen_int8(const int8_t* src, __nv_bfloat16* dst) {
-  constexpr int kBN = T::kCP - 8;
-  for (int i = threadIdx.x; i < T::kBK * kBN / 4; i += kThreads) {
-    const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
-    const char4 v = *reinterpret_cast<const char4*>(src + r * T::kWP + c);
-    uint2 o;
-    o.x = pack_bf16(static_cast<float>(v.x), static_cast<float>(v.y));
-    o.y = pack_bf16(static_cast<float>(v.z), static_cast<float>(v.w));
-    *reinterpret_cast<uint2*>(dst + r * T::kCP + c) = o;
-  }
-}
-
 // The items of a product, (row tile, column tile, split) with the row tile
 // fastest so that the CTAs reading one weight tile run together, walked by
 // the whole grid; a CTA's first item is item blockIdx.x. N must be a
-// multiple of BN and K / splits of 64 (the wrappers check); operand rows
+// multiple of BN and K / splits of 32 (the wrappers check); operand rows
 // from M on are neither loaded nor written.
 template <typename T>
 struct Items {
@@ -208,14 +111,14 @@ struct Items {
 };
 
 // the weight tile of rows [k0, k0 + kBK) and columns [n0, n0 + BN) into ring stage `stage`
-template <typename T, typename WT>
+template <typename T>
 __device__ __forceinline__ void load_w(const MmaGemm& g, unsigned char* smem, int stage, int k0,
                                        int n0) {
-  constexpr int kChunks = T::kBN * static_cast<int>(sizeof(WT)) / 16;
-  WT* ws = reinterpret_cast<WT*>(smem + T::kStages * T::kABytes) + stage * (T::kBK * T::kWP);
-  const WT* w = static_cast<const WT*>(g.w);
+  constexpr int kChunks = T::kBN * 4 / 16;
+  float* ws = reinterpret_cast<float*>(smem + T::kStages * T::kABytes) + stage * (T::kBK * T::kWP);
+  const float* w = static_cast<const float*>(g.w);
   for (int c = threadIdx.x; c < T::kBK * kChunks; c += kThreads) {
-    const int r = c / kChunks, e = (c % kChunks) * (16 / static_cast<int>(sizeof(WT)));
+    const int r = c / kChunks, e = (c % kChunks) * 4;
     cp_async16(ws + r * T::kWP + e, w + static_cast<size_t>(k0 + r) * g.N + n0 + e, true);
   }
 }
@@ -227,13 +130,12 @@ __device__ __forceinline__ void load_w(const MmaGemm& g, unsigned char* smem, in
 template <typename T>
 __device__ __forceinline__ void load_a(const MmaGemm& g, unsigned char* smem, int stage, int m0,
                                        int k0) {
-  using AT = typename T::A;
-  constexpr int kChunks = T::kBK * static_cast<int>(sizeof(AT)) / 16;
-  AT* as = reinterpret_cast<AT*>(smem) + stage * (T::kBM * T::kAP);
-  const AT* a = static_cast<const AT*>(g.a);
+  constexpr int kChunks = T::kBK * 4 / 16;
+  float* as = reinterpret_cast<float*>(smem) + stage * (T::kBM * T::kAP);
+  const float* a = static_cast<const float*>(g.a);
   const int rows = g.M - m0 < T::kBM ? g.M - m0 : T::kBM;
   for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    const int r = c / kChunks, e = (c % kChunks) * (16 / static_cast<int>(sizeof(AT)));
+    const int r = c / kChunks, e = (c % kChunks) * 4;
     cp_async16(as + r * T::kAP + e, a + static_cast<size_t>(m0 + r) * g.K + k0 + e, true);
   }
 }
@@ -243,9 +145,9 @@ __device__ __forceinline__ void load_a(const MmaGemm& g, unsigned char* smem, in
 // of the next product (one cp.async group each), so that they stream in
 // while it waits; that product is then run with prefetched = true and the
 // same PF.
-template <typename WT, int BM, int BN, int STAGES, int PF>
+template <int BM, int BN, int STAGES, int PF>
 __device__ void prefetch_weights(const MmaGemm& g, unsigned char* smem) {
-  using T = Tiles<WT, BM, BN, STAGES>;
+  using T = Tiles<BM, BN, STAGES>;
   static_assert(PF < STAGES, "prefetch at most the ring's first STAGES - 1 steps");
   const Items<T> it(g);
   const int item = blockIdx.x;
@@ -253,21 +155,17 @@ __device__ void prefetch_weights(const MmaGemm& g, unsigned char* smem) {
   const int k_begin = it.split(item, g.splits) * it.split_len, n0 = it.n0(item, g.splits);
 #pragma unroll
   for (int s = 0; s < PF; ++s) {
-    if (s < it.nk) load_w<T, WT>(g, smem, s, k_begin + s * T::kBK, n0);
+    if (s < it.nk) load_w<T>(g, smem, s, k_begin + s * T::kBK, n0);
     cp_async_commit();
   }
 }
 
-template <typename WT, int BM, int BN, int STAGES, int PF = 0>
-__device__ void mma_gemm(const MmaGemm& g, unsigned char* smem, bool prefetched = false) {
-  using T = Tiles<WT, BM, BN, STAGES>;
-  using AT = typename T::A;
-  constexpr bool kInt8 = sizeof(WT) == 1;
-  constexpr bool kF32 = sizeof(WT) == sizeof(float);
+template <int BM, int BN, int STAGES, int PF = 0>
+__device__ void mma_gemm_f32(const MmaGemm& g, unsigned char* smem, bool prefetched = false) {
+  using T = Tiles<BM, BN, STAGES>;
   constexpr int kBK = T::kBK, kMT = T::kMT, kWarpsM = T::kWarpsM, kS = T::kStages;
-  AT* as_ring = reinterpret_cast<AT*>(smem);
-  WT* ws_ring = reinterpret_cast<WT*>(smem + kS * T::kABytes);
-  __nv_bfloat16* wconv = reinterpret_cast<__nv_bfloat16*>(smem + kS * (T::kABytes + T::kWBytes));
+  float* as_ring = reinterpret_cast<float*>(smem);
+  float* ws_ring = reinterpret_cast<float*>(smem + kS * T::kABytes);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, t = lane & 3;
   const bool active = warp % kWarpsM < T::kActiveM;   // this warp's rows lie in the tile
@@ -279,8 +177,7 @@ __device__ void mma_gemm(const MmaGemm& g, unsigned char* smem, bool prefetched 
     // the weight tiles of the first PF steps were issued before the barrier
     const bool have_w = prefetched && item == blockIdx.x;
 
-    // acc: the product; small: the 3xTF32 cross terms (float32 packs), or the
-    // scaled sum of the finished scale chunks (int8 packs)
+    // acc: the product; small: the 3xTF32 cross terms
     float acc[kMT][kNT][4], small[kMT][kNT][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
@@ -292,7 +189,7 @@ __device__ void mma_gemm(const MmaGemm& g, unsigned char* smem, bool prefetched 
 #pragma unroll
     for (int s = 0; s < kS - 1; ++s) {
       if (s < it.nk) {
-        if (!have_w || s >= PF) load_w<T, WT>(g, smem, s, k_begin + s * kBK, n0);
+        if (!have_w || s >= PF) load_w<T>(g, smem, s, k_begin + s * kBK, n0);
         load_a<T>(g, smem, s, m0, k_begin + s * kBK);
       }
       cp_async_commit();
@@ -302,62 +199,14 @@ __device__ void mma_gemm(const MmaGemm& g, unsigned char* smem, bool prefetched 
       __syncthreads();   // step kt has landed; step kt - 1's stage is free
       const int next = kt + kS - 1;
       if (next < it.nk) {
-        load_w<T, WT>(g, smem, next % kS, k_begin + next * kBK, n0);
+        load_w<T>(g, smem, next % kS, k_begin + next * kBK, n0);
         load_a<T>(g, smem, next % kS, m0, k_begin + next * kBK);
       }
       cp_async_commit();
       const int st = kt % kS;
-      const AT* as = as_ring + st * (T::kBM * T::kAP);
-      const WT* ws = ws_ring + st * (kBK * T::kWP);
-      if constexpr (kF32) {
-        if (active) mma_step<kMT, kWarpsM>(as, T::kAP, ws, T::kWP, acc, small);
-      } else {
-        // bf16 / int8: each 64-deep step's sum from zero, added to the
-        // running sum in float32: accumulated in the tensor cores across
-        // the whole contraction, the sum rounds differently enough from a
-        // float32 one to flip more bf16 roundings downstream (PERF.md §6)
-        float part[kMT][kNT][4];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[mt][j][e] = 0.0f;
-        if constexpr (kInt8) {
-          widen_int8<T>(reinterpret_cast<const int8_t*>(ws), wconv);
-          __syncthreads();
-          if (active) mma_step<kMT, kWarpsM>(as, T::kAP, wconv, T::kCP, part, small);
-        } else {
-          if (active) mma_step<kMT, kWarpsM>(as, T::kAP, ws, T::kWP, part, small);
-        }
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
-        if constexpr (kInt8) {
-          // the end of a scale chunk (or of the split): scale its sum into small
-          const int k_end = k_begin + (kt + 1) * kBK;
-          if (k_end % g.chunk == 0 || kt + 1 == it.nk) {
-            const float* sc = g.scales + static_cast<size_t>((k_end - 1) / g.chunk) * g.N + n0 +
-                              (warp / kWarpsM) * kNT * 8 + 2 * t;
-#pragma unroll
-            for (int j = 0; j < kNT; ++j) {
-              const float s0 = __ldg(sc + j * 8), s1 = __ldg(sc + j * 8 + 1);
-#pragma unroll
-              for (int mt = 0; mt < kMT; ++mt) {
-                small[mt][j][0] += acc[mt][j][0] * s0;
-                small[mt][j][1] += acc[mt][j][1] * s1;
-                small[mt][j][2] += acc[mt][j][2] * s0;
-                small[mt][j][3] += acc[mt][j][3] * s1;
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
-              }
-            }
-          }
-        }
-      }
+      if (active)
+        mma_step<kMT, kWarpsM>(as_ring + st * (T::kBM * T::kAP), T::kAP,
+                               ws_ring + st * (kBK * T::kWP), T::kWP, acc, small);
     }
     cp_async_wait<0>();
     __syncthreads();   // the ring is free for the next item
@@ -374,15 +223,7 @@ __device__ void mma_gemm(const MmaGemm& g, unsigned char* smem, bool prefetched 
           const int n = n0 + (warp / kWarpsM) * kNT * 8 + j * 8 + 2 * t;
           float y[2];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = hlf * 2 + e;
-            if constexpr (kInt8)
-              y[e] = small[mt][j][i];
-            else if constexpr (kF32)
-              y[e] = acc[mt][j][i] + small[mt][j][i];
-            else
-              y[e] = acc[mt][j][i];
-          }
+          for (int e = 0; e < 2; ++e) y[e] = acc[mt][j][hlf * 2 + e] + small[mt][j][hlf * 2 + e];
           if (g.epi == kPartial) {
             store2(g.partial + (static_cast<size_t>(split) * g.M + row) * g.N + n, y[0], y[1]);
             continue;
@@ -396,10 +237,7 @@ __device__ void mma_gemm(const MmaGemm& g, unsigned char* smem, bool prefetched 
             y[0] = bs::gelu_tanh(y[0]);
             y[1] = bs::gelu_tanh(y[1]);
           }
-          if (g.epi == kBiasF32)
-            store2(static_cast<float*>(g.out) + static_cast<size_t>(row) * g.N + n, y[0], y[1]);
-          else
-            store2(static_cast<AT*>(g.out) + static_cast<size_t>(row) * g.N + n, y[0], y[1]);
+          store2(static_cast<float*>(g.out) + static_cast<size_t>(row) * g.N + n, y[0], y[1]);
         }
   }
 }

@@ -43,8 +43,8 @@ def library_lock(source: Path) -> threading.RLock:
 def build_library(source: Path, headers: Sequence[Path] = ()) -> Tuple[ctypes.CDLL, float, str]:
     """Compile ``source`` (unless a library of the same sources exists) and
     load it. Returns (library, seconds spent, ptxas report: registers, shared
-    memory and spills per kernel, empty for a host source or when the library
-    was reused)."""
+    memory and spills per kernel and ptxas's performance warnings, empty for a
+    host source or when the library was reused)."""
     t0 = time.perf_counter()
     digest = hashlib.sha256()
     for path in (source, *headers):
@@ -68,6 +68,7 @@ def build_library(source: Path, headers: Sequence[Path] = ()) -> Tuple[ctypes.CD
                     f"{cmd[0]} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, lib_path)
             report = "\n".join(line for line in proc.stderr.splitlines()
-                               if "registers" in line or "spill" in line)
+                               if "registers" in line or "spill" in line
+                               or "Performance" in line)
         lib = ctypes.CDLL(str(lib_path))
     return lib, time.perf_counter() - t0, report

@@ -32,6 +32,7 @@ import torch
 
 from ..models import nn as tnn
 from ..parallel.sharding import whole
+from ..utils.metrics import GLOBAL_METRICS
 from ._nvcc import CSRC, build_library, library_lock
 
 PackDict = Dict[str, torch.Tensor]
@@ -40,9 +41,17 @@ PackDict = Dict[str, torch.Tensor]
 LAUNCHES = 0
 # The same launches by the pack's weight type ("f32", "bf16", "int8").
 LAUNCHES_BY_PACK: Dict[str, int] = {}
+# The same launches by the products' engine: "wgmma" (bf16 and int8 packs,
+# csrc/wgmma_gemm.cuh) or "mma_f32" (float32 packs' 3xTF32 mma.sync).
+LAUNCHES_BY_ENGINE: Dict[str, int] = {}
+# Products whose contraction splits a CTA added itself (one plane written).
+FOLDED = 0
+# A planted fault for chip_smoke.py: the folded splits added last first.
+FOLD_LAST_FIRST = False
 
 SOURCE = CSRC / "ar_block_stack.cu"
-HEADERS = (CSRC / "mma_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
+HEADERS = (CSRC / "mma_stages.cuh", CSRC / "wgmma_gemm.cuh", CSRC / "block_stack_common.cuh",
+           CSRC / "mma_ptx.cuh")
 BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
 _LIB = None
 
@@ -50,6 +59,7 @@ WEIGHT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 PACK_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 NOT_CO_RESIDENT = -1
+NO_TENSOR_MAP = -2
 
 
 class _ArParams(ctypes.Structure):
@@ -60,7 +70,7 @@ class _ArParams(ctypes.Structure):
         "qscale", "sqkv", "sproj", "sfc1", "sfc2", "kc", "vc", "feats", "k_new", "v_new",
         "xa", "qkv", "attn", "h", "partial", "prof")] + [(n, ctypes.c_int) for n in (
         "B", "pn", "d", "H", "hidden", "depth", "cache_len", "start", "wtype", "ctype", "bm",
-        "ln_width", "sp_proj", "sp_fc2")]
+        "ln_width", "sp_proj", "sp_fc2", "plan_qkv", "plan_proj", "plan_fc1", "plan_fc2")]
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +279,7 @@ def check_pack(pack: PackDict, device: torch.device) -> None:
         raise ValueError("int8 packs need their scales, and only they have them")
 
 
-TILE_N, TILE_K = 64, 64   # csrc/ar_block_stack.cu: columns of a product tile, bf16 step
+TILE_N, TILE_K = 64, 64   # the split rule's tile columns and contraction step
 # profile slots of the kernel (csrc/ar_block_stack.cu, enum Stage), as CTA 0
 # sees them: per stage its own ns from a barrier to the next, then per stage
 # its ns waiting in that barrier, then the barriers passed
@@ -291,9 +301,35 @@ def ln_width(d: int, rows: int) -> int:
 
 
 def row_tile(pn: int) -> int:
-    """Rows of the kernel's product tiles for a level of ``pn`` tokens: 32 up
-    to 64 tokens, 128 above; from pn, never from the batch."""
+    """The row tile the split rule assumes for a level of ``pn`` tokens: 32 up
+    to 64 tokens, 128 above (the float32 packs' product tiles); from pn,
+    never from the batch."""
     return 32 if pn <= 64 else 128
+
+
+# The wgmma engine (bf16 and int8 packs, csrc/wgmma_gemm.cuh): a warpgroup's
+# tile is 64 weight columns by WIDE_ROWS operand rows in a wide plan (a CTA
+# item of 128 columns) or NARROW_ROWS in a narrow one; the plan's bits.
+WIDE_ROWS, NARROW_ROWS = 128, 64
+PLAN_WIDE, PLAN_FOLD, PLAN_FOLD_LAST_FIRST = 1, 2, 4
+
+
+def gemm_plan(rows: int, n: int, k: int, splits: int, chunk: Optional[int], sms: int) -> int:
+    """The wgmma engine's tile plan of one launch's (rows, n) x k product
+    split ``splits`` ways (the split count comes from one batch row:
+    contraction_splits, encoder_splits). Folded (PLAN_FOLD) when the wide
+    tiles of 128 rows x 128 columns alone give every SM an item: a CTA then
+    adds all splits of its tile in order, and one plane is written; an int8
+    pack (``chunk``: its scale chunk) only where each split lies within one
+    chunk. Wide (PLAN_WIDE: the CTA's two warpgroups share 128 x 128 items)
+    when the items, split or folded, give every SM one; else narrow (each
+    warpgroup takes 64 x 64 items of its own), so that a product of few rows
+    spreads its weights over twice the lanes. From the launch's rows, which
+    the batch sets; the arithmetic of a row is the same in every plan."""
+    wide_tiles = -(-rows // WIDE_ROWS) * (n // 128) if n % 128 == 0 else 0
+    fold = splits > 1 and wide_tiles >= sms and (chunk is None or k // splits <= chunk)
+    wide = wide_tiles * (1 if fold else splits) >= sms
+    return (PLAN_WIDE if wide else 0) | (PLAN_FOLD if fold else 0)
 
 
 def contraction_splits(rows: int, products, d: int, sms: int) -> list:
@@ -313,13 +349,44 @@ def contraction_splits(rows: int, products, d: int, sms: int) -> list:
     return splits
 
 
-def split_products(rows: int, batch: int, d: int, hidden: int, device: torch.device):
+def split_products(rows: int, d: int, hidden: int, device: torch.device):
     """Contraction splits of the two products whose row passes add the
-    partial sums (the projection, fc2) and the scratch for those sums."""
-    splits = contraction_splits(rows, ((d, d), (d, hidden)), d,
-                                torch.cuda.get_device_properties(device).multi_processor_count)
-    return splits, torch.empty(max(splits) * batch * rows * d, dtype=torch.float32,
-                               device=device)
+    partial sums (the projection, fc2), and the card's SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return contraction_splits(rows, ((d, d), (d, hidden)), d, sms), sms
+
+
+def launch_plans(rows: int, products, pack: PackDict, d: int, sms: int) -> list:
+    """``gemm_plan`` of each (n, k, splits) product of a launch of ``rows``
+    rows (zeros for a float32 pack), with the planted fold-order fault when
+    FOLD_LAST_FIRST is set."""
+    if pack_dtype(pack) == torch.float32:
+        return [0] * len(products)
+    chunk = d if pack_dtype(pack) == torch.int8 else None
+    plans = [gemm_plan(rows, n, k, s, chunk, sms) for n, k, s in products]
+    fault = PLAN_FOLD_LAST_FIRST if FOLD_LAST_FIRST else 0
+    return [p | fault if p & PLAN_FOLD else p for p in plans]
+
+
+def count_launch(by_pack: Dict[str, int], by_engine: Dict[str, int], pack: PackDict, plans,
+                 depth: int, kernel: str) -> int:
+    """Count a launch by pack and by the products' engine ("wgmma" for bf16
+    and int8 packs, "mma_f32" for float32 ones), and mirror the counts into
+    ``GLOBAL_METRICS`` under ``kernels.<kernel>.``; returns the products
+    folded (``depth`` per folded plan)."""
+    count_pack(by_pack, pack)
+    engine = "mma_f32" if pack_dtype(pack) == torch.float32 else "wgmma"
+    by_engine[engine] = by_engine.get(engine, 0) + 1
+    folded = depth * sum(1 for p in plans if p & PLAN_FOLD)
+    GLOBAL_METRICS.count(f"kernels.{kernel}.{engine}")
+    if folded:
+        GLOBAL_METRICS.count(f"kernels.{kernel}.folded", folded)
+    return folded
+
+
+def rows_alloc(m: int) -> int:
+    """Rows of an operand scratch for the wgmma engine: at least one 64-row box."""
+    return max(m, NARROW_ROWS)
 
 
 def ptr(t: Optional[torch.Tensor]):
@@ -331,6 +398,8 @@ def check_launch(name: str, err: int) -> None:
     if err == NOT_CO_RESIDENT:
         raise RuntimeError(f"{name}: the cooperative grid cannot be co-resident on this card "
                            "(shared memory or registers too large)")
+    if err == NO_TENSOR_MAP:
+        raise RuntimeError(f"{name}: the CUDA driver could not make a tensor map of an operand")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -385,7 +454,7 @@ def _launch(x, ada, pack, k_cache, v_cache, start: int, num_heads: int,
             prof: Optional[torch.Tensor] = None):
     """One launch of the kernel on checked inputs; ``prof`` (int64, the
     kernel's profile slots) is added to when given."""
-    global LAUNCHES
+    global LAUNCHES, FOLDED
     build()
     x = x.float().contiguous()
     ada = ada.float().contiguous()
@@ -398,11 +467,15 @@ def _launch(x, ada, pack, k_cache, v_cache, start: int, num_heads: int,
     feats = torch.empty((b, pn, d), dtype=torch.float32, device=dev)
     k_new = torch.empty((depth, b, pn, d), dtype=k_cache.dtype, device=dev)
     v_new = torch.empty_like(k_new)
-    xa = torch.empty((m, d), dtype=op, device=dev)
+    xa = torch.empty((rows_alloc(m), d), dtype=op, device=dev)
     qkv = torch.empty((m, 3 * d), dtype=torch.float32, device=dev)
-    attn = torch.empty((m, d), dtype=op, device=dev)
-    h = torch.empty((m, hidden), dtype=op, device=dev)
-    (sp_proj, sp_fc2), partial = split_products(pn, b, d, hidden, dev)
+    attn = torch.empty((rows_alloc(m), d), dtype=op, device=dev)
+    h = torch.empty((rows_alloc(m), hidden), dtype=op, device=dev)
+    (sp_proj, sp_fc2), sms = split_products(pn, d, hidden, dev)
+    plans = launch_plans(m, ((3 * d, d, 1), (d, d, sp_proj), (hidden, d, 1),
+                             (d, hidden, sp_fc2)), pack, d, sms)
+    planes = max(1 if p & PLAN_FOLD else s for p, s in ((plans[1], sp_proj), (plans[3], sp_fc2)))
+    partial = torch.empty(planes * m * d, dtype=torch.float32, device=dev)
     params = _ArParams(
         x=ptr(x), ada=ptr(ada), wqkv=ptr(pack["wqkv"]), wproj=ptr(pack["wproj"]),
         wfc1=ptr(pack["wfc1"]), wfc2=ptr(pack["wfc2"]), bqkv=ptr(pack["bqkv"]),
@@ -413,11 +486,12 @@ def _launch(x, ada, pack, k_cache, v_cache, start: int, num_heads: int,
         qkv=ptr(qkv), attn=ptr(attn), h=ptr(h), partial=ptr(partial), prof=ptr(prof), B=b,
         pn=pn, d=d, H=num_heads, hidden=hidden, depth=depth, cache_len=k_cache.shape[2],
         start=start, wtype=WEIGHT_TYPES[pack_dtype(pack)], ctype=CACHE_TYPES[k_cache.dtype],
-        bm=row_tile(pn), ln_width=ln_width(d, pn), sp_proj=sp_proj, sp_fc2=sp_fc2)
+        bm=row_tile(pn), ln_width=ln_width(d, pn), sp_proj=sp_proj, sp_fc2=sp_fc2,
+        plan_qkv=plans[0], plan_proj=plans[1], plan_fc1=plans[2], plan_fc2=plans[3])
     stream = torch.cuda.current_stream(dev).cuda_stream
     check_launch("ar_block_stack", _LIB.artalk_ar_block_stack(ctypes.byref(params), stream))
     LAUNCHES += 1
-    count_pack(LAUNCHES_BY_PACK, pack)
+    FOLDED += count_launch(LAUNCHES_BY_PACK, LAUNCHES_BY_ENGINE, pack, plans, depth, "ar")
     return feats, k_new, v_new
 
 

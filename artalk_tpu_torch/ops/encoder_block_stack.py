@@ -24,17 +24,24 @@ import torch
 from ..models import nn as tnn
 from ..parallel.sharding import whole
 from ._nvcc import CSRC, build_library, library_lock
-from .ar_block_stack import (WEIGHT_TYPES, PackDict, check_launch, check_pack, check_shapes,
-                             count_pack, layer_mats, pack_dtype, pack_weights, ptr, rounder,
-                             softmax_attend, weight_matmul)
+from .ar_block_stack import (PLAN_FOLD, WEIGHT_TYPES, PackDict, check_launch, check_pack,
+                             check_shapes, count_launch, launch_plans, layer_mats, pack_dtype,
+                             pack_weights, ptr, rounder, rows_alloc, softmax_attend,
+                             weight_matmul)
 
 # Launches of the CUDA kernel in this process; encoder_block_stack() adds one per launch.
 LAUNCHES = 0
 # The same launches by the pack's weight type ("f32", "bf16", "int8").
 LAUNCHES_BY_PACK: dict = {}
+# The same launches by the products' engine: "wgmma" (bf16 and int8 packs) or
+# "mma_f32" (float32 packs).
+LAUNCHES_BY_ENGINE: dict = {}
+# Products whose contraction splits a CTA added itself (one plane written).
+FOLDED = 0
 
 SOURCE = CSRC / "encoder_block_stack.cu"
-HEADERS = (CSRC / "mma_stages.cuh", CSRC / "block_stack_common.cuh", CSRC / "mma_ptx.cuh")
+HEADERS = (CSRC / "mma_stages.cuh", CSRC / "wgmma_gemm.cuh", CSRC / "block_stack_common.cuh",
+           CSRC / "mma_ptx.cuh")
 BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
 _LIB = None
 
@@ -47,11 +54,12 @@ class _EncParams(ctypes.Structure):
         "ln1b", "ln2s", "ln2b", "sqkv", "sout", "sfc1", "sfc2", "y", "xa", "qkv", "attn",
         "h", "partial")] + [(n, ctypes.c_int) for n in ("B", "T", "d", "H", "hidden", "depth")
                             ] + [("eps", ctypes.c_float)] + [(n, ctypes.c_int) for n in (
-                                "wtype", "sp_out", "sp_fc2")]
+                                "wtype", "sp_out", "sp_fc2", "plan_qkv", "plan_out", "plan_fc1",
+                                "plan_fc2")]
 
 
 HEAD_DIM = 64        # the kernel's head dim (wav2vec2: 1024 / 16)
-TILE_M, TILE_N, TILE_K = 128, 128, 64   # csrc/mma_stages.cuh: kBM, kBN, bf16 kBK
+TILE_M, TILE_N, TILE_K = 128, 128, 64   # the split rule's tile (the float32 packs' split tiles)
 
 
 def encoder_splits(rows: int, d: int, hidden: int, sms: int) -> tuple:
@@ -145,7 +153,7 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
     returns (B, T, d) float32. A CPU tensor goes through
     ``encoder_block_stack_plain``. A DTensor (a tensor-parallel model's
     activations) goes in whole (``parallel.sharding.whole``)."""
-    global LAUNCHES
+    global LAUNCHES, FOLDED
     x = whole(x)
     if x.device.type == "cpu":
         return encoder_block_stack_plain(x, pack, num_heads=num_heads, eps=eps)
@@ -169,13 +177,16 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
     y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
     # the products' operands: bf16 (the reference's rounding) unless the pack is float32
     op = torch.float32 if pack_dtype(pack) == torch.float32 else torch.bfloat16
-    xa = torch.empty((m, d), dtype=op, device=dev)
+    xa = torch.empty((rows_alloc(m), d), dtype=op, device=dev)
     qkv = torch.empty((m, 3 * d), dtype=op, device=dev)
-    attn = torch.empty((m, d), dtype=op, device=dev)
-    h = torch.empty((m, hidden), dtype=op, device=dev)
-    splits = encoder_splits(t, d, hidden,
-                            torch.cuda.get_device_properties(dev).multi_processor_count)
-    partial = torch.empty(max(splits) * m * d, dtype=torch.float32, device=dev)
+    attn = torch.empty((rows_alloc(m), d), dtype=op, device=dev)
+    h = torch.empty((rows_alloc(m), hidden), dtype=op, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sp_out, sp_fc2 = encoder_splits(t, d, hidden, sms)
+    plans = launch_plans(m, ((3 * d, d, 1), (d, d, sp_out), (hidden, d, 1), (d, hidden, sp_fc2)),
+                         pack, d, sms)
+    planes = max(1 if p & PLAN_FOLD else s for p, s in ((plans[1], sp_out), (plans[3], sp_fc2)))
+    partial = torch.empty(planes * m * d, dtype=torch.float32, device=dev)
     params = _EncParams(
         x=ptr(x), wqkv=ptr(pack["wqkv"]), wout=ptr(pack["wout"]), wfc1=ptr(pack["wfc1"]),
         wfc2=ptr(pack["wfc2"]), bqkv=ptr(pack["bqkv"]), bout=ptr(pack["bout"]),
@@ -184,11 +195,12 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
         sqkv=ptr(pack.get("sqkv")), sout=ptr(pack.get("sout")), sfc1=ptr(pack.get("sfc1")),
         sfc2=ptr(pack.get("sfc2")), y=ptr(y), xa=ptr(xa), qkv=ptr(qkv), attn=ptr(attn),
         h=ptr(h), partial=ptr(partial), B=b, T=t, d=d, H=num_heads, hidden=hidden,
-        depth=depth, eps=eps, wtype=WEIGHT_TYPES[pack_dtype(pack)], sp_out=splits[0],
-        sp_fc2=splits[1])
+        depth=depth, eps=eps, wtype=WEIGHT_TYPES[pack_dtype(pack)], sp_out=sp_out,
+        sp_fc2=sp_fc2, plan_qkv=plans[0], plan_out=plans[1], plan_fc1=plans[2],
+        plan_fc2=plans[3])
     stream = torch.cuda.current_stream(dev).cuda_stream
     check_launch("encoder_block_stack",
                  _LIB.artalk_encoder_block_stack(ctypes.byref(params), stream))
     LAUNCHES += 1
-    count_pack(LAUNCHES_BY_PACK, pack)
+    FOLDED += count_launch(LAUNCHES_BY_PACK, LAUNCHES_BY_ENGINE, pack, plans, depth, "encoder")
     return y

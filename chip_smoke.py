@@ -50,10 +50,18 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      two planted faults (activations left unrounded, int8 fc2 with one scale
      per channel) must break; the grid barriers a launch passes at each
      level (counted by the kernel) beside the earlier CUDA-core design's;
+     then the int8 pack at the stream cells' batches (B = 140 and 408, every
+     level, inputs drawn on the card): feats within AR_FEATS_TOL and k/v
+     within 2 bf16 ulps of the plain version, three sampled rows within
+     1e-6 of themselves launched alone, and a planted fault (the splits that
+     a CTA adds itself, added last first) breaking that row rule;
   7. encoder block stack vs encoder_block_stack_plain at (1, 199, 1024), 24
      layers: float32 within atol = rtol 1e-4, bf16 and int8 0.04; two
      windows in one launch equal each window alone exactly; for bf16/int8 the
-     first layer alone as in phase 6;
+     first layer alone as in phase 6; then the int8 pack at the stream cell's
+     140 windows against the plain version within ENCODER_TOL, three sampled
+     windows within 1e-6 of themselves alone, and the planted fold-order
+     fault breaking that rule;
   8. full width per mode (ARTALK_AR_FUSED=1, fast, fast + fused, int8), each on
      a fresh engine: inference -> (250, 106) finite, stream equals offline to
      1e-4, 5 AR launches and 1 encoder launch per window in the fused modes
@@ -254,7 +262,10 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      (0, 1], the card's name and power limit in its device object; the dict
      printed on one line, the seconds it took, and each kernel's launches
      over the run (the rasterizer, both block stacks, the splat and the sort
-     launched at least once).
+     launched at least once); then the int8 packs at the stream cells'
+     shapes (the AR stack per level at B = 1, 140 and 408, the encoder at 1
+     and 140 windows) beside their bounds at that batch, and the block
+     stacks' launches by engine (wgmma or mma_f32) and products folded.
 
  35. the measurement tools (artalk_tpu_torch/tools/): first, StreamPool at
      B = 32 (3200 rows a level at pn 100) right after phase 5 on its exact
@@ -508,6 +519,12 @@ BENCH_REPEATS = 2
 # phase 35: the widest pool of the tools' curve, and each tool's reduced run:
 # (tool, argv, precision environment)
 POOL_WIDE = 32
+# the serving batches of the stream cells (benchmark/: stream-int8-http runs
+# 140 sessions, stream-mimi-int8-http 408): both block stacks' int8 packs at
+# these batches in phases 6 and 7 (AR at both, the encoder at 140), each
+# with three sampled rows (the first, the middle, the last) launched alone
+SERVING_AR_BATCHES = (140, 408)
+SERVING_ENCODER_BATCH = 140
 TOOL_RUNS = (
     ("bench_streampool", ["--sizes", "1,8,32", "--iters", "3"],
      {"ARTALK_AR_PRECISION": "int8", "ARTALK_AR_FUSED": "1"}),
@@ -1028,6 +1045,132 @@ def phase_encoder_kernel(model, packs: dict) -> dict:
             phase_encoder_one_layer(model, name, pack)
         errs[name] = err
     return errs
+
+
+def ar_inputs_on_card(model, b: int, level: int, seed: int):
+    """ar_inputs drawn on the card (the serving batches' AdaLN rows reach
+    9 GB at B = 408, pn 100), bf16 caches."""
+    dev = model.pos_embed.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    depth, d, h = model.depth, model.embed_dim, model.num_heads
+    pn = model.patch_nums[level]
+    x = torch.randn((b, pn, d), generator=g, device=dev) * 0.3
+    ada = torch.randn((depth, b, pn, 6 * d), generator=g, device=dev) * 0.1
+    keys = torch.randn((depth, b, model.cache_len, h, d // h), generator=g, device=dev)
+    kc = (keys / keys.norm(dim=-1, keepdim=True)).reshape(depth, b, model.cache_len, d)
+    del keys
+    vc = torch.randn((depth, b, model.cache_len, d), generator=g, device=dev) * 0.5
+    return (x, ada, kc.to(torch.bfloat16), vc.to(torch.bfloat16),
+            model.prev_len + model.offsets[level])
+
+
+def sampled_rows(b: int) -> tuple:
+    return (0, b // 2, b - 1)
+
+
+def ar_rows_vs_alone(pack: dict, args: dict, x, ada, kc, vc, got) -> float:
+    """The largest difference of the sampled rows of a launch (``got``) from
+    the same rows launched alone (feats, k and v)."""
+    err = 0.0
+    for r in sampled_rows(x.shape[0]):
+        one = ar_stack.ar_block_stack(x[r:r + 1], ada[:, r:r + 1].contiguous(), pack,
+                                      kc[:, r:r + 1].contiguous(), vc[:, r:r + 1].contiguous(),
+                                      **args)
+        err = max(err, (one[0] - got[0][r:r + 1]).abs().max().item(),
+                  *((o.float() - g[:, r:r + 1].float()).abs().max().item()
+                    for o, g in zip(one[1:], got[1:])))
+    return err
+
+
+def planted_fold_fault(fn):
+    """``fn()`` with the planted fault of the folded products: their splits
+    added last first inside the CTA."""
+    ar_stack.FOLD_LAST_FIRST = True
+    try:
+        return fn()
+    finally:
+        ar_stack.FOLD_LAST_FIRST = False
+
+
+def phase_ar_serving(model, pack: dict) -> dict:
+    """Phase 6 at the stream cells' batches: the AR stack's int8 pack at B =
+    SERVING_AR_BATCHES for every level against its plain version (feats
+    within AR_FEATS_TOL, k/v within 2 bf16 ulps) and the sampled rows against
+    themselves alone (1e-6); the planted fault (the folded splits added last
+    first) must break the row rule. Returns the largest readings per batch."""
+    out = {}
+    for b in SERVING_AR_BATCHES:
+        r = {"feats": 0.0, "kv_ulps": 0.0, "rows": 0.0, "fault_rows": 0.0, "folded": 0}
+        for level in range(len(model.patch_nums)):
+            x, ada, kc, vc, start = ar_inputs_on_card(model, b, level, seed=500 + level)
+            args = dict(start=start, num_heads=model.num_heads)
+            folded = ar_stack.FOLDED
+            got = ar_stack.ar_block_stack(x, ada, pack, kc, vc, **args)
+            r["folded"] += ar_stack.FOLDED - folded
+            want = ar_stack.ar_block_stack_plain(x, ada, pack, kc, vc, **args)
+            r["feats"] = max(r["feats"], (got[0] - want[0]).abs().max().item())
+            r["kv_ulps"] = max(r["kv_ulps"], *(bf16_ulps_of_max(g, w)
+                                               for g, w in zip(got[1:], want[1:])))
+            del want
+            r["rows"] = max(r["rows"], ar_rows_vs_alone(pack, args, x, ada, kc, vc, got))
+            if ar_stack.FOLDED > folded:
+                bad = planted_fold_fault(lambda: ar_stack.ar_block_stack(x, ada, pack, kc, vc,
+                                                                         **args))
+                r["fault_rows"] = max(r["fault_rows"],
+                                      ar_rows_vs_alone(pack, args, x, ada, kc, vc, bad))
+                del bad
+            del x, ada, kc, vc, got
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        print(f"[ar] int8 pack at B = {b}, every level: feats max abs err {r['feats']:.3g} (limit "
+              f"{AR_FEATS_TOL}), k/v {r['kv_ulps']:.3g} bf16 ulps (limit 2), sampled rows vs "
+              f"alone {r['rows']:.3g} (limit 1e-6); products folded {r['folded']}; planted "
+              f"fault folded splits last first: rows vs alone {r['fault_rows']:.3g}")
+        if r["feats"] > AR_FEATS_TOL or r["kv_ulps"] > 2 or r["rows"] > 1e-6:
+            raise AssertionError(f"int8 AR stack at B = {b} off: {r}")
+        if r["folded"] and r["fault_rows"] <= 1e-6:
+            raise AssertionError(f"the row rule at B = {b} lets splits added last first pass")
+        out[b] = r
+    return out
+
+
+def phase_encoder_serving(model, pack: dict) -> dict:
+    """Phase 7 at the stream cell's batch: the encoder stack's int8 pack at B
+    = SERVING_ENCODER_BATCH windows against its plain version (ENCODER_TOL)
+    and the sampled windows against themselves alone (1e-6); the planted
+    fault (the folded splits added last first) must break the row rule."""
+    heads = model.cfg.wav2vec.num_attention_heads
+    b = SERVING_ENCODER_BATCH
+    dev = model.pos_embed.device
+    g = torch.Generator(device=dev).manual_seed(210)
+    t = model.audio_encoder.num_output_frames(model.window_samples)
+    x = torch.randn((b, t, model.cfg.wav2vec.hidden_size), generator=g, device=dev) * 0.5
+    tol = ENCODER_TOL["int8"]
+    folded = enc_stack.FOLDED
+    got = enc_stack.encoder_block_stack(x, pack, num_heads=heads)
+    folded = enc_stack.FOLDED - folded
+    want = enc_stack.encoder_block_stack_plain(x, pack, num_heads=heads)
+    of_bound = ((got - want).abs() / (tol + tol * want.abs())).max().item()
+    err = (got - want).abs().max().item()
+    del want
+
+    def rows(y):
+        return max((enc_stack.encoder_block_stack(x[r:r + 1], pack, num_heads=heads)
+                    - y[r:r + 1]).abs().max().item() for r in sampled_rows(b))
+
+    row_err = rows(got)
+    fault = rows(planted_fold_fault(lambda: enc_stack.encoder_block_stack(x, pack,
+                                                                          num_heads=heads)))
+    torch.cuda.synchronize()
+    print(f"[encoder] int8 pack at B = {b}: max abs err {err:.3g} ({of_bound:.3f} of ENCODER_TOL's "
+          f"bound), sampled windows vs alone {row_err:.3g} (limit 1e-6); products folded "
+          f"{folded}; planted fault folded splits last first: windows vs alone {fault:.3g}")
+    if of_bound > 1.0 or row_err > 1e-6:
+        raise AssertionError(f"int8 encoder stack at B = {b} off the plain version or its rows")
+    if folded and fault <= 1e-6:
+        raise AssertionError(f"the row rule at B = {b} lets splits added last first pass")
+    return {"max_abs_err": err, "of_bound": of_bound, "rows": row_err, "fault_rows": fault,
+            "folded": folded}
 
 
 def build_engine(dev: torch.device, env: dict, config: tcfg.ModelConfig,
@@ -1579,6 +1722,65 @@ def phase_times(model, ar_packs: dict, enc_packs: dict) -> dict:
         out[f"encoder/{name}"] = {"ms": k, "plain_ms": p, "bound_ms": bound,
                                   "bound_by": "bytes" if b_ms >= o_ms else "operations",
                                   "library_ms": lib}
+    return out
+
+
+def engine_counters() -> str:
+    return "; ".join(f"{name}: launches by engine {dict(m.LAUNCHES_BY_ENGINE)}, products folded "
+                     f"{m.FOLDED}" for name, m in (("ar", ar_stack), ("encoder", enc_stack)))
+
+
+def phase_serving_times(model, ar_pack: dict, enc_pack: dict) -> dict:
+    """Phase 10 at the stream cells' shapes: the int8 packs' kernels per AR
+    level at B = 1 and SERVING_AR_BATCHES and the encoder at B = 1 and
+    SERVING_ENCODER_BATCH windows, each beside its bound at that batch (the
+    weights once, the tokens' bytes and FLOPs times B), and the engine and
+    fold counters."""
+    out = {}
+    dtype = ar_pack["wqkv"].dtype
+    hidden = ar_pack["wfc1"].shape[-1]
+    pack_b = roofline.pack_bytes(model.depth, model.embed_dim, hidden, dtype,
+                                 5 * model.embed_dim + hidden + model.num_heads)
+    for b in (1, *SERVING_AR_BATCHES):
+        ms = bound = 0.0
+        parts = []
+        for level, pn in enumerate(model.patch_nums):
+            x, ada, kc, vc, start = ar_inputs_on_card(model, b, level, seed=600 + level)
+            args = dict(start=start, num_heads=model.num_heads)
+            k = cuda_ms(lambda: ar_stack.ar_block_stack(x, ada, ar_pack, kc, vc, **args),
+                        20 if b == 1 else 3)
+            work = roofline.ar_level_work(model.depth, model.embed_dim, hidden, model.num_heads,
+                                          pn, start, dtype, 2)
+            lb = max(roofline.bytes_ms(pack_b + b * (work.bytes - pack_b)),
+                     roofline.matmul_ms(b * work.flops, dtype))
+            parts.append(f"pn {pn} {k:.4f} ms (bound {lb:.4f}, {lb / k:.3f})")
+            ms, bound = ms + k, bound + lb
+            del x, ada, kc, vc
+            torch.cuda.empty_cache()
+        print(f"[times] ar int8 at B = {b}: {ms:.4f} ms a window, bound {bound:.4f} ms, share "
+              f"{bound / ms:.3f}; " + ", ".join(parts))
+        out[f"ar/int8/B{b}"] = {"ms": ms, "bound_ms": bound}
+    cfg = model.cfg.wav2vec
+    heads = cfg.num_attention_heads
+    t = model.audio_encoder.num_output_frames(model.window_samples)
+    g = torch.Generator(device=model.pos_embed.device).manual_seed(220)
+    x = torch.randn((SERVING_ENCODER_BATCH, t, cfg.hidden_size), generator=g,
+                    device=model.pos_embed.device) * 0.5
+    dtype = enc_pack["wqkv"].dtype
+    for b in (1, SERVING_ENCODER_BATCH):
+        work = roofline.encoder_window_work(cfg.num_hidden_layers, cfg.hidden_size,
+                                            cfg.intermediate_size, t, dtype)
+        pack_b = roofline.pack_bytes(cfg.num_hidden_layers, cfg.hidden_size,
+                                     cfg.intermediate_size, dtype,
+                                     9 * cfg.hidden_size + cfg.intermediate_size)
+        lb = max(roofline.bytes_ms(pack_b + b * (work.bytes - pack_b)),
+                 roofline.matmul_ms(b * work.flops, dtype))
+        k = cuda_ms(lambda: enc_stack.encoder_block_stack(x[:b], enc_pack, num_heads=heads),
+                    10 if b == 1 else 3)
+        print(f"[times] encoder int8 at B = {b}: {k:.4f} ms, bound {lb:.4f} ms, share "
+              f"{lb / k:.3f}")
+        out[f"encoder/int8/B{b}"] = {"ms": k, "bound_ms": lb}
+    print(f"[times] {engine_counters()}")
     return out
 
 
@@ -3467,8 +3669,11 @@ def main() -> int:
                  "bf16": model.audio_encoder.pack_fused(torch.bfloat16),
                  "int8": model.fused_audio_pack}
     ar_err = phase_ar_kernel(model, ar_packs)
+    serving = {"ar/int8": phase_ar_serving(model, ar_packs["int8"])}
     enc_err = phase_encoder_kernel(model, enc_packs)
+    serving["encoder/int8"] = phase_encoder_serving(model, enc_packs["int8"])
     times = phase_times(model, ar_packs, enc_packs)
+    serving_times = phase_serving_times(model, ar_packs["int8"], enc_packs["int8"])
     del engine, model, ar_packs, enc_packs
     splat, gaga_sorts, splat_scenes = phase_gaga_all(dev, audio, motions)
     phase_sort_path(splat_scenes["avatar"])
@@ -3550,6 +3755,9 @@ def main() -> int:
                         "tool_launches": under(tools, f"ar/{name}"),
                         "checkpoint_launches": ckpt[f"ar/{name}"],
                         "wide": wide_entry(pool_wide["int8"]["kernels"], f"ar/{name}"),
+                        "serving": serving.get(f"ar/{name}"),
+                        "serving_times": {k: v for k, v in serving_times.items()
+                                          if k.startswith(f"ar/{name}/")},
                         "max_abs_err": ar_err[name], **times[f"ar/{name}"]})
         kernels.append({"name": f"encoder_block_stack/{name}", "route": "cuda",
                         "source": "artalk_tpu_torch/csrc/encoder_block_stack.cu",
@@ -3559,6 +3767,9 @@ def main() -> int:
                         "tool_launches": under(tools, f"encoder/{name}"),
                         "checkpoint_launches": ckpt[f"encoder/{name}"],
                         "wide": wide_entry(pool_wide["int8"]["kernels"], f"encoder/{name}"),
+                        "serving": serving.get(f"encoder/{name}"),
+                        "serving_times": {k: v for k, v in serving_times.items()
+                                          if k.startswith(f"encoder/{name}/")},
                         **train_launches.get(name, {
                             "train_launches": 0, "train_max_abs_err": None,
                             "train_condition_max_abs_err": None}),

@@ -216,3 +216,81 @@ def test_splits_and_row_tiles_do_not_depend_on_the_batch():
         for k, s in zip((d, hidden), splits):
             assert k % (s * 64) == 0 and (d % (k // s) == 0 or (k // s) % d == 0)
             assert math.ceil(pn / bm) * (d // tab.TILE_N) * s <= SMS
+
+
+# The wgmma engine's tile plans (ops/ar_block_stack.gemm_plan) of the four
+# products (q/k/v, projection, fc1, fc2) at pn = PATCH_NUMS, at B = 1 and the
+# stream cells' batches, on the H100's 132 SMs: W = wide, F = folded.
+PLANS = {1: {1: "----", 140: "----", 408: "-W-W"},
+         5: {1: "----", 140: "-WWW", 408: "WWWW"},
+         25: {1: "----", 140: "WFWF", 408: "WFWF"},
+         50: {1: "----", 140: "WFWF", 408: "WFWF"},
+         100: {1: "----", 140: "WFWF", 408: "WFWF"}}
+
+
+def _plan_letters(plans) -> str:
+    return "".join("F" if p & tab.PLAN_FOLD else "W" if p & tab.PLAN_WIDE else "-"
+                   for p in plans)
+
+
+@pytest.mark.parametrize("batch", [1, 140, 408])
+def test_tile_plans_at_the_serving_batches(batch):
+    """The tiles come from the launch's rows (B x pn): narrow at B = 1, wide
+    and folded at the stream cells' batches; the splits come from pn alone,
+    the same at every batch, and a folded product is always wide."""
+    d, hidden = 768, 3072
+    for pn in PATCH_NUMS:
+        splits = tab.contraction_splits(pn, ((d, d), (d, hidden)), d, SMS)
+        products = ((3 * d, d, 1), (d, d, splits[0]), (hidden, d, 1), (d, hidden, splits[1]))
+        plans = [tab.gemm_plan(batch * pn, n, k, s, d, SMS) for n, k, s in products]
+        assert _plan_letters(plans) == PLANS[pn][batch], (pn, batch)
+        for p in plans:
+            assert not p & tab.PLAN_FOLD or p & tab.PLAN_WIDE
+        assert splits == tab.contraction_splits(pn, ((d, d), (d, hidden)), d, SMS)
+
+
+@pytest.mark.parametrize("rows,n,k,splits,chunk,want", [
+    (128 * 132, 128, 768, 6, 768, tab.PLAN_WIDE | tab.PLAN_FOLD),   # one wide tile per SM
+    (128 * 131, 128, 768, 6, 768, tab.PLAN_WIDE),                   # one short: split items
+    (128 * 131, 128, 768, 1, 768, 0),                               # unsplit and short: narrow
+    (128 * 132, 128, 768, 1, 768, tab.PLAN_WIDE),                   # nothing to fold
+    (128 * 132, 128, 3072, 2, 768, tab.PLAN_WIDE),                  # a split over two chunks
+    (128 * 132, 128, 3072, 2, None, tab.PLAN_WIDE | tab.PLAN_FOLD),  # bf16: no chunks
+    (128 * 264, 192, 768, 6, 768, 0),                               # 192 columns: no wide tile
+])
+def test_fold_engages_when_the_grid_is_full(rows, n, k, splits, chunk, want):
+    """A CTA adds the splits itself only when the 128 x 128 tiles alone give
+    each of the SMs an item, and for int8 only where each split lies within
+    one scale chunk; wide when the items (split or folded) fill the grid."""
+    assert tab.gemm_plan(rows, n, k, splits, chunk, SMS) == want
+
+
+def test_folded_splits_equal_the_row_pass_sum():
+    """The fold inside the CTA against the row pass's sum of the split
+    planes, in float32 as the card adds them: int8 packs scale each split's
+    sum (one chunk) and add it, bf16 packs add the split's sum. Both start
+    from 0 and take split 0 first, so they agree bit for bit; the same splits
+    added last first (the planted fault of chip_smoke.py), or by a pairwise
+    tree, do not."""
+    rng = np.random.default_rng(7)
+    d, splits, steps = 768, 6, 2
+    acc = (rng.standard_normal((splits, 4096)) * np.exp(rng.uniform(-6, 6, (splits, 4096)))
+           ).astype(np.float32)
+    scale = rng.uniform(1e-3, 3e-2, (1, 4096)).astype(np.float32)
+    for int8 in (True, False):
+        # the split's value: its scaled sum (fmaf(acc, s, 0) rounds as acc * s) or its sum
+        planes = acc * scale if int8 else acc
+        assert planes.dtype == np.float32
+        row_pass = np.zeros(4096, np.float32)
+        for p in planes:                      # the row pass: v = 0; v += plane[s]
+            row_pass = row_pass + p
+        fold = np.zeros(4096, np.float32)
+        for s in range(splits):               # the CTA: F = 0; F = __fadd_rn(F, value of s)
+            fold = np.add(fold, planes[s], dtype=np.float32)
+        assert fold.tobytes() == row_pass.tobytes()
+        last_first = np.zeros(4096, np.float32)
+        for s in reversed(range(splits)):
+            last_first = last_first + planes[s]
+        tree = (planes[0] + planes[1]) + (planes[2] + planes[3]) + (planes[4] + planes[5])
+        assert (last_first != row_pass).any() and (tree != row_pass).any()
+    assert d % (d // splits) == 0 and steps * 64 == d // splits   # one chunk a split

@@ -121,10 +121,12 @@ def test_ar_stack_matches_pallas(ar_models, mode, batch):
                             *jcache, jpack.get("scales"), start=start,
                             num_heads=jm.num_heads, interpret=True)
         before, by_pack = tar.LAUNCHES, dict(tar.LAUNCHES_BY_PACK)
+        by_engine, folded = dict(tar.LAUNCHES_BY_ENGINE), tar.FOLDED
         got = tar.ar_block_stack(torch.from_numpy(x), torch.from_numpy(ada), tpack, kc, vc,
                                  start=start, num_heads=tm.num_heads)
         assert tar.LAUNCHES == before  # CPU tensors take the plain version
         assert tar.LAUNCHES_BY_PACK == by_pack
+        assert tar.LAUNCHES_BY_ENGINE == by_engine and tar.FOLDED == folded
         assert got[1].dtype == got[2].dtype == cache_dt
         feats, k_new, v_new = (to_np(t.float()) for t in got)
         want = [np.asarray(w).astype(np.float32) for w in want]
@@ -151,11 +153,13 @@ def test_encoder_stack_matches_pallas(encoders, mode, tol):
                                     jpack.get("scales"), num_heads=ENC_CFG.num_attention_heads,
                                     eps=ENC_CFG.layer_norm_eps, interpret=True))
     before, by_pack = tenc.LAUNCHES, dict(tenc.LAUNCHES_BY_PACK)
+    by_engine, folded = dict(tenc.LAUNCHES_BY_ENGINE), tenc.FOLDED
     got = to_np(tenc.encoder_block_stack(torch.from_numpy(x), tpack,
                                          num_heads=ENC_CFG.num_attention_heads,
                                          eps=ENC_CFG.layer_norm_eps))
     assert tenc.LAUNCHES == before
     assert tenc.LAUNCHES_BY_PACK == by_pack
+    assert tenc.LAUNCHES_BY_ENGINE == by_engine and tenc.FOLDED == folded
     np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
 

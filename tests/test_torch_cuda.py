@@ -115,10 +115,13 @@ def test_ar_block_stack_matches_plain(cuda, mode):
     for pn, start in ((1, 40), (5, 41), (25, 46), (50, 46)):
         args = [t.to(cuda) for t in _ar_inputs(3, pn, start, cache_dtype=cache_dtype)]
         before, by_pack = tab.LAUNCHES, dict(tab.LAUNCHES_BY_PACK)
+        by_engine = dict(tab.LAUNCHES_BY_ENGINE)
         got = tab.ar_block_stack(args[0], args[1], pack, args[2], args[3], start=start,
                                  num_heads=4)
         assert tab.LAUNCHES == before + 1
         assert tab.LAUNCHES_BY_PACK[mode] == by_pack.get(mode, 0) + 1
+        engine = "mma_f32" if mode == "f32" else "wgmma"
+        assert tab.LAUNCHES_BY_ENGINE[engine] == by_engine.get(engine, 0) + 1
         want = tab.ar_block_stack_plain(args[0], args[1], pack, args[2], args[3], start=start,
                                         num_heads=4)
         torch.cuda.synchronize()
@@ -137,9 +140,10 @@ def test_ar_block_stack_matches_plain(cuda, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
 def test_ar_rows_equal_alone(cuda, mode):
-    """At B = 1, 5 and 8 (up to 800 rows over 7 row tiles of 128, or 13 of
-    32), each batch row equals the same row run alone bit for bit: row tiles
-    and splits come from pn, never from the batch."""
+    """At B = 1, 5 and 8 (up to 800 rows over 13 row tiles of 64 or 7 of 128;
+    7 of 128 or 25 of 32 for the float32 pack), each batch row equals the same row run
+    alone bit for bit: the splits come from pn, never from the batch, and the
+    tile plan, which the launch's rows choose, changes no row's arithmetic."""
     pack = tab.pack_block_weights(_blocks().to(cuda), 4, dtype=PACK_DTYPES[mode])
     cache_dtype = torch.float32 if mode == "f32" else torch.bfloat16
     for pn, start in ((5, 41), (50, 60), (100, 60)):
@@ -157,6 +161,48 @@ def test_ar_rows_equal_alone(cuda, mode):
                 for g, a in zip((got[0][r:r + 1], got[1][:, r:r + 1], got[2][:, r:r + 1]),
                                 alone[r]):
                     assert torch.equal(g, a), (mode, pn, b, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_ar_folded_rows_equal_alone(cuda, mode):
+    """At B = 96 and pn 100 (9,600 rows: 75 row tiles of 128 by 2 of 128
+    columns fill the 132 SMs) the projection's and fc2's splits are added
+    inside the CTA: the launch counts as the wgmma engine's with 2 folded
+    products a block, and each sampled row equals the same row run alone
+    (its splits added by the row pass) bit for bit."""
+    pack = tab.pack_block_weights(_blocks().to(cuda), 4, dtype=PACK_DTYPES[mode])
+    args = [t.to(cuda) for t in _ar_inputs(96, 100, 60, cache_len=160,
+                                           cache_dtype=torch.bfloat16)]
+    by_engine, folded = dict(tab.LAUNCHES_BY_ENGINE), tab.FOLDED
+    got = tab.ar_block_stack(args[0], args[1], pack, args[2], args[3], start=60, num_heads=4)
+    assert tab.LAUNCHES_BY_ENGINE["wgmma"] == by_engine.get("wgmma", 0) + 1
+    assert tab.FOLDED == folded + 2 * 2
+    for r in (0, 47, 95):
+        one = tab.ar_block_stack(args[0][r:r + 1], args[1][:, r:r + 1].contiguous(), pack,
+                                 args[2][:, r:r + 1].contiguous(),
+                                 args[3][:, r:r + 1].contiguous(), start=60, num_heads=4)
+        for g, a in zip((got[0][r:r + 1], got[1][:, r:r + 1], got[2][:, r:r + 1]), one):
+            assert torch.equal(g, a), (mode, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_encoder_folded_windows_equal_alone(cuda, mode):
+    """48 windows in one launch (9,552 rows, 75 row tiles of 128): the split
+    products are folded inside the CTA, and each sampled window equals the
+    same window run alone bit for bit."""
+    gen = torch.Generator().manual_seed(4)
+    layers = _Layers(256, 1024, 2, 1e-5).requires_grad_(False)
+    for lin in (layers.q, layers.k, layers.v, layers.out, layers.fc1, layers.fc2):
+        tnn.linear_init(lin, gen)
+    pack = teb.pack_encoder_weights(layers.to(cuda), dtype=PACK_DTYPES[mode])
+    x = (torch.randn((48, 199, 256), generator=gen) * 0.5).to(cuda)
+    folded = teb.FOLDED
+    got = teb.encoder_block_stack(x, pack, num_heads=4)
+    assert teb.FOLDED == folded + 2 * 2
+    for r in (0, 23, 47):
+        assert torch.equal(got[r:r + 1], teb.encoder_block_stack(x[r:r + 1], pack, num_heads=4))
 
 
 @pytest.mark.cuda
@@ -185,7 +231,7 @@ def test_encoder_block_stack_matches_plain(cuda, mode, tol):
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 def test_encoder_rows_equal_alone_at_pool_capacity(cuda, mode):
     """Four windows in one launch (StreamPool's capacity, 796 rows over 13
-    row tiles): each equals the same window run alone bit for bit."""
+    row tiles of 64): each equals the same window run alone bit for bit."""
     gen = torch.Generator().manual_seed(3)
     layers = _Layers(256, 1024, 2, 1e-5).requires_grad_(False)
     for lin in (layers.q, layers.k, layers.v, layers.out, layers.fc1, layers.fc2):

@@ -153,3 +153,14 @@ def test_splits_do_not_depend_on_the_batch():
             assert math.ceil(FRAMES / teb.TILE_M) * (d // teb.TILE_N) * s <= SMS
     assert teb.encoder_splits(FRAMES, 1024, 4096, SMS) == (8, 8)
     assert teb.encoder_splits(4 * FRAMES, 1024, 4096, SMS)[1] == 4   # one chunk a split at least
+    # the tiles of the bf16 / int8 packs' engine come from the launch's rows
+    # (ops/ar_block_stack.gemm_plan), the splits above from one window: at
+    # one window every product narrow; at the stream's 140 windows every
+    # product wide and the splits folded
+    from artalk_tpu_torch.ops import ar_block_stack as tab
+    sp_out, sp_fc2 = teb.encoder_splits(FRAMES, 1024, 4096, SMS)
+    products = ((3072, 1024, 1), (1024, 1024, sp_out), (4096, 1024, 1), (1024, 4096, sp_fc2))
+    wide, fold = tab.PLAN_WIDE, tab.PLAN_WIDE | tab.PLAN_FOLD
+    for windows, want in ((1, [0, 0, 0, 0]), (140, [wide, fold, wide, fold])):
+        assert [tab.gemm_plan(windows * FRAMES, n, k, s, 1024, SMS)
+                for n, k, s in products] == want, windows
