@@ -88,7 +88,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .engine import build_fused_packs, resolve_device
+from .engine import resolve_device
 from .models.ar_model import BitwiseARModel
 from .models.flame import FlameModel
 from .models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS, GAGAvatar
@@ -96,8 +96,10 @@ from .models.gagavatar.generators import transform_emoca_to_p3d
 from .models.renderer import MeshRenderer
 from .ops import gsplat
 from .ops.ar_block_stack import pack_dtype
+from .ops._nvcc import kernel_libraries
 from .utils import roofline
 from .utils.assets import load_or_synthesize_flame
+from .utils.params import load_model
 from .utils.timing import pipelined_ms
 
 KNOWN_SECTIONS = ("motion", "stream", "mesh", "gsplat", "batched", "gaga",
@@ -202,16 +204,15 @@ def decode_kernels(model: BitwiseARModel, windows: int) -> dict:
 
 @contextlib.contextmanager
 def precision(model: BitwiseARModel, **fields):
-    """``model`` on its own weights under ``dataclasses.replace(model.cfg,
-    **fields)``, with the fused packs built on entry; the config is restored
-    and the packs freed on exit."""
+    """``model`` on its own weights in the mode ``dataclasses.replace(model.cfg,
+    **fields)`` (``set_precision``: the fused packs built on entry); the
+    mode is restored on exit, and the packs it built freed."""
     cfg = model.cfg
-    model.cfg = dataclasses.replace(cfg, **fields)
+    model.set_precision(dataclasses.replace(cfg, **fields))
     try:
-        build_fused_packs(model)
         yield model
     finally:
-        model.cfg, model.fused_pack, model.fused_audio_pack = cfg, None, None
+        model.set_precision(cfg)
 
 
 def bench_motion(model: BitwiseARModel, dev: torch.device,
@@ -395,8 +396,9 @@ def build_kernels() -> None:
     """Build and load every kernel's library: one nvcc each, all at once (a
     library built before loads at once), so that no build runs inside a
     timed call."""
-    with ThreadPoolExecutor(len(roofline.KERNELS)) as pool:
-        list(pool.map(lambda mod: mod.build(), roofline.KERNELS.values()))
+    libs = kernel_libraries()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(), libs))
 
 
 def run(sections: Iterable[str], device: Union[str, torch.device],
@@ -412,8 +414,7 @@ def run(sections: Iterable[str], device: Union[str, torch.device],
            "device": device_info(dev)}
     model = None
     if _MODEL_SECTIONS & set(chosen):
-        model = BitwiseARModel(config or ModelConfig()).init(
-            torch.Generator().manual_seed(0)).to(dev)
+        model = load_model(config or ModelConfig(), device=dev)
 
     def record_util(prefix: str, values: dict) -> None:
         out.update({f"{prefix}_{k}": v for k, v in values.items()})

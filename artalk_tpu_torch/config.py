@@ -4,12 +4,16 @@ Reference-format ``config.json`` files load verbatim. The dataclasses mirror
 the JAX package's field for field. ``MimiEncoderConfig`` lives here (the JAX
 package keeps it in ``models/mimi.py`` and imports it lazily to break an
 import cycle), so ``ModelConfig.mimi`` takes a plain default.
+
+The precision mode is read from the environment here and nowhere else
+(``precision_from_env``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Sequence
 
 
@@ -183,7 +187,7 @@ class MimiEncoderConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Top-level model config bundling AR + VAE + audio sub-configs, with the
-    JAX config's precision switches (the engine sets them from the
+    JAX config's precision switches (``precision_from_env`` sets them from the
     ``ARTALK_AR_PRECISION`` / ``ARTALK_AR_FUSED`` environment variables)."""
 
     ar: ARConfig = dataclasses.field(default_factory=ARConfig)
@@ -227,3 +231,41 @@ def load_config(path: str) -> ModelConfig:
     """Load a reference-format config.json into a typed ModelConfig."""
     with open(path) as f:
         return ModelConfig.from_json_dict(json.load(f))
+
+
+def assets_config(assets_dir: str) -> ModelConfig:
+    """``<assets_dir>/config.json``, or the production ``ModelConfig()``
+    where there is none."""
+    path = os.path.join(assets_dir, "config.json")
+    return load_config(path) if os.path.exists(path) else ModelConfig()
+
+
+def precision_from_env(config: ModelConfig) -> ModelConfig:
+    """``config`` with the environment's precision mode switched on, as the
+    JAX engine reads it: ``ARTALK_AR_PRECISION`` = ``exact`` (the default) /
+    ``fast`` (``bf16_audio``, ``bf16_ar``) / ``int8`` (fast, ``int8_ar`` and
+    ``fused_ar``), and ``ARTALK_AR_FUSED=1`` (``fused_ar``). "fast" and
+    "int8" change the code bits against "exact". The one reader of these
+    variables."""
+    ar_prec = os.environ.get("ARTALK_AR_PRECISION", "exact")
+    if ar_prec not in ("exact", "fast", "int8"):
+        raise ValueError(
+            f"ARTALK_AR_PRECISION={ar_prec!r}: expected 'exact', 'fast' or 'int8'")
+    if ar_prec in ("fast", "int8"):
+        config = dataclasses.replace(config, bf16_audio=True, bf16_ar=True)
+    if ar_prec == "int8":
+        config = dataclasses.replace(config, int8_ar=True, fused_ar=True)
+    if os.environ.get("ARTALK_AR_FUSED", "0") not in ("0", ""):
+        config = dataclasses.replace(config, fused_ar=True)
+    return config
+
+
+def precision_mode(config: ModelConfig) -> str:
+    """The name of ``config``'s precision mode: "exact", "fused" (float32
+    packs), "fast", "fast+fused" or "int8"."""
+    if config.int8_ar:
+        return "int8"
+    name = "fast" if config.bf16_ar else "exact"
+    if config.fused_ar:
+        return "fused" if name == "exact" else name + "+fused"
+    return name

@@ -8,11 +8,9 @@ Counterpart of ``artalk_tpu/engine.py``: ``inference`` (audio -> smoothed
 default, where the rasterizer, the splat and the block stacks are CUDA
 kernels; "cpu" runs the plain versions and must be asked for explicitly.
 
-The JAX engine's precision switches are read from the environment at
-construction, as there: ``ARTALK_AR_PRECISION`` = ``exact`` (default) /
-``fast`` (bf16 audio encoder and AR blocks) / ``int8`` (fast + int8 fused
-kernels), and ``ARTALK_AR_FUSED=1`` (the block-stack kernels). The fused
-paths' weight packs are built once here.
+The precision mode is read from the environment at construction, as the JAX
+engine reads it (``config.precision_from_env``), and the model is built in
+it with its weight packs (``utils/params.load_model``).
 
 The audio encoder follows the configuration: ``"AUDIO_ENCODER": "mimi"`` in
 ``<assets_dir>/config.json`` (``ARConfig.audio_encoder``) selects the Mimi
@@ -40,7 +38,6 @@ float32 everywhere.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import os
 from typing import Dict, Iterator, Optional, Union
@@ -48,8 +45,8 @@ from typing import Dict, Iterator, Optional, Union
 import numpy as np
 import torch
 
-from .config import ModelConfig, load_config
-from .models.ar_model import BitwiseARModel, WindowState
+from .config import ModelConfig, assets_config, precision_from_env
+from .models.ar_model import WindowState
 from .models.flame import FlameModel
 from .models.gagavatar import GAGAvatar
 from .models.nn import full_float32
@@ -57,37 +54,10 @@ from .models.renderer import MeshRenderer
 from .ops.savgol import smooth_motion_savgol
 from .utils.assets import load_or_synthesize_flame
 from .utils.metrics import GLOBAL_METRICS
-from .utils.params import load_params_npz, params_from_flat
+from .utils.params import load_model
 from .utils.video import write_video
 
 full_float32()
-
-
-def _resolve_ar_precision(config: ModelConfig) -> ModelConfig:
-    """Apply the ARTALK_AR_PRECISION ("exact" default / "fast" / "int8") and
-    ARTALK_AR_FUSED environment switches to ``config``, as the JAX engine
-    does. "fast" and "int8" change the code bits against "exact"."""
-    ar_prec = os.environ.get("ARTALK_AR_PRECISION", "exact")
-    if ar_prec not in ("exact", "fast", "int8"):
-        raise ValueError(
-            f"ARTALK_AR_PRECISION={ar_prec!r}: expected 'exact', 'fast' or 'int8'")
-    if ar_prec in ("fast", "int8"):
-        config = dataclasses.replace(config, bf16_audio=True, bf16_ar=True)
-    if ar_prec == "int8":
-        config = dataclasses.replace(config, int8_ar=True, fused_ar=True)
-    if os.environ.get("ARTALK_AR_FUSED", "0") not in ("0", ""):
-        config = dataclasses.replace(config, fused_ar=True)
-    return config
-
-
-def build_fused_packs(model: BitwiseARModel) -> None:
-    """Build the fused paths' weight packs once (on the model's device),
-    unless the model holds them already. The audio pack stays None where the
-    encoder has no fused path (Mimi, the post-LN wav2vec2 layout)."""
-    if model.cfg.fused_ar and model.fused_pack is None:
-        model.fused_pack = model.pack_fused_decode()
-    if model.cfg.fused_ar and model.fused_audio_pack is None:
-        model.fused_audio_pack = model.pack_fused_audio()
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -119,24 +89,9 @@ class ARTAvatarInferEngine:
         self.clip_length = clip_length
         self.assets_dir = assets_dir
 
-        if config is None:
-            cfg_path = os.path.join(assets_dir, "config.json")
-            config = load_config(cfg_path) if os.path.exists(cfg_path) else ModelConfig()
-        config = _resolve_ar_precision(config)
-        self.cfg = config
-        if params is None:
-            ckpt_path = os.path.join(assets_dir, "artalk_params.npz")
-            if os.path.exists(ckpt_path):
-                params = load_params_npz(ckpt_path)
-            else:
-                print(f"[artalk_tpu_torch] no checkpoint at {ckpt_path}; "
-                      "initializing random weights")
-        if params is None:
-            model = BitwiseARModel(config).init(torch.Generator().manual_seed(seed))
-        else:
-            model = params_from_flat(params, config)
-        self.model = model.to(self.device)
-        build_fused_packs(self.model)
+        self.cfg = precision_from_env(config or assets_config(assets_dir))
+        self.model = load_model(self.cfg, params, os.path.join(assets_dir, "artalk_params.npz"),
+                                seed, self.device)
 
         flame_data = load_or_synthesize_flame(assets_dir)
         self.flame = FlameModel(flame_data, n_shape=300, n_exp=100, scale=1.0).to(self.device)

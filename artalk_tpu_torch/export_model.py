@@ -35,7 +35,7 @@ from .config import ModelConfig
 from .engine import resolve_device
 from .models import nn as tnn
 from .models.ar_model import BitwiseARModel, WindowState
-from .utils.params import (flat_from_module, load_flat_into, load_params_npz, params_from_flat,
+from .utils.params import (flat_from_module, load_flat_into, load_model, load_params_npz,
                            save_params_npz)
 
 
@@ -113,15 +113,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    cfg = ModelConfig()
-    if os.path.exists(args.checkpoint):
-        model = params_from_flat(load_params_npz(args.checkpoint), cfg)
-    else:
-        print(f"WARNING: no checkpoint at {args.checkpoint}; exporting RANDOM-INIT weights "
-              "(smoke-test artifact only, do not deploy)")
-        model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0))
-    model = model.to(device)
+    if not os.path.exists(args.checkpoint):
+        print("WARNING: exporting RANDOM-INIT weights (smoke-test artifact only, do not deploy)")
+    model = load_model(ModelConfig(), checkpoint=args.checkpoint,
+                       device=resolve_device(args.device))
     program = export_window_step(model, batch=args.batch)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"window_step_b{args.batch}.pt2")

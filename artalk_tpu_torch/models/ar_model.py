@@ -17,18 +17,18 @@ The audio encoder is the wav2vec2 encoder (``models/wav2vec.py``; its
 flash-attention kernel) or, with ``ARConfig.audio_encoder = "mimi"``, the Mimi
 codec (``models/mimi.py``: 512-d conditioning at 12.5 Hz).
 
-The configuration's precision switches route the decode as the JAX model
-does: ``bf16_audio`` runs the wav2vec2 encoder in bfloat16 (Mimi stays
-float32), ``bf16_ar`` the block walk; ``fused_ar`` runs each level's blocks as one launch of the AR
-block-stack kernel (``ops/ar_block_stack.py``) against a merged-head cache,
-and the wav2vec2 stable-LN encoder layers as one launch of
-``ops/encoder_block_stack.py`` (Mimi and the post-LN layout have no fused
-path), with
-float32, bfloat16 or (``int8_ar``) int8 weight packs. Float32 packs keep the
-JAX package's routing rules: the AR kernel at batch <= 2 only, the encoder
-kernel at batch 1 only. A caller that decodes repeatedly builds the packs
-once into ``fused_pack`` / ``fused_audio_pack`` (the engine does); without
-them the decode packs inline.
+The model owns its precision mode (``config.precision_from_env`` reads it):
+``set_precision`` sets the configuration's switches and builds, or drops,
+the block stacks' weight packs, and the switches route the decode as the JAX
+model does. ``bf16_audio`` runs the wav2vec2 encoder in bfloat16 (Mimi stays
+float32), ``bf16_ar`` the block walk; ``fused_ar`` runs each level's blocks
+as one launch of the AR block-stack kernel (``ops/ar_block_stack.py``)
+against a merged-head cache, and the wav2vec2 stable-LN encoder layers as one
+launch of ``ops/encoder_block_stack.py`` (Mimi and the post-LN layout have no
+fused path), with float32, bfloat16 or (``int8_ar``) int8 weight packs
+(``pack_type``). Float32 packs keep the JAX package's routing rules
+(``kernel_takes``): the AR kernel at batch <= 2 only, the encoder kernel at
+batch 1 only.
 
 Sampling (``topk_topp_mask``, ``sample_with_top_k_top_p`` and the ``sample=``
 argument of the head, the window decode and the window steps) draws from a
@@ -67,6 +67,30 @@ from .bsq import bits_to_values
 from .mimi import MimiEncoder
 from .style_encoder import StyleEncoder
 from .wav2vec import Wav2VecEncoder
+
+
+# The float32 packs' largest batch per block stack, as the JAX package routes
+# them (its float32 tiles are a parity mode, not a speed path); bf16 and int8
+# packs run at any batch.
+F32_PACK_MAX_BATCH = {"ar": 2, "encoder": 1}
+
+
+def pack_type(cfg: ModelConfig, stack: str) -> torch.dtype:
+    """The weight type of ``stack``'s pack ("ar": the AdaLN blocks;
+    "encoder": the wav2vec2 layers) in ``cfg``'s mode: int8 with
+    ``int8_ar``, else bfloat16 where the stack computes in bf16 (``bf16_ar``,
+    ``bf16_audio``), else float32."""
+    if cfg.int8_ar:
+        return torch.int8
+    return torch.bfloat16 if (cfg.bf16_ar if stack == "ar" else cfg.bf16_audio) else torch.float32
+
+
+def kernel_takes(cfg: ModelConfig, stack: str, batch: int) -> bool:
+    """Does ``stack``'s block-stack kernel run a batch of ``batch`` rows in
+    ``cfg``'s mode? Only with ``fused_ar``, and a float32 pack only up to
+    ``F32_PACK_MAX_BATCH``."""
+    return cfg.fused_ar and (pack_type(cfg, stack) != torch.float32
+                             or batch <= F32_PACK_MAX_BATCH[stack])
 
 
 def topk_topp_mask(logits: torch.Tensor, top_k: int = 2,
@@ -182,8 +206,7 @@ class BitwiseARModel(nn.Module):
         self.register_buffer("_lvl_idx", torch.cat([
             torch.full((pn,), i, dtype=torch.long) for i, pn in enumerate(self.patch_nums)
         ]), persistent=False)
-        # weight packs of the fused paths (pack_fused_decode / pack_fused_audio),
-        # set by a caller that decodes repeatedly; None packs inline
+        # the fused paths' weight packs, built by set_precision
         self.fused_pack: Optional[dict] = None
         self.fused_audio_pack: Optional[dict] = None
         self.requires_grad_(False)
@@ -275,29 +298,39 @@ class BitwiseARModel(nn.Module):
             v_cache[i, :, : self.prev_len] = tnn.merge_heads(v)
         return k_cache, v_cache
 
-    def pack_fused_decode(self) -> dict:
-        """Weight pack of the blocks for the AR block-stack kernel: int8 with
-        ``int8_ar``, else bfloat16 with ``bf16_ar``, else float32."""
-        dtype = torch.float32
-        if self.cfg.bf16_ar:
-            dtype = torch.bfloat16
-        if self.cfg.int8_ar:
-            dtype = torch.int8
-        return pack_block_weights(self.blocks, self.num_heads, dtype=dtype)
+    def set_precision(self, cfg: ModelConfig) -> None:
+        """Decode in ``cfg``'s precision mode from now on: set ``cfg`` and, with
+        ``fused_ar``, build both block stacks' weight packs from the current
+        parameters on their device, or drop them. A call with the mode the
+        model holds its packs for keeps them."""
+        if cfg == self.cfg and (self.fused_pack is not None) == cfg.fused_ar:
+            return
+        self.cfg = cfg
+        self.fused_pack = self._pack("ar") if cfg.fused_ar else None
+        self.fused_audio_pack = self._pack("encoder") if cfg.fused_ar else None
 
-    def pack_fused_audio(self) -> Optional[dict]:
-        """Weight pack of the encoder layers for the encoder block-stack
-        kernel: int8 with ``int8_ar``, else bfloat16 with ``bf16_audio``, else
-        float32. Packed from the float32 parameters. None where the encoder
-        has no fused path: Mimi, and the post-LN wav2vec2 layout."""
+    def _pack(self, stack: str) -> Optional[dict]:
+        """``stack``'s weight pack for its block-stack kernel ("ar", "encoder"),
+        of ``pack_type``, packed from the float32 parameters; None where the
+        encoder has no fused path: Mimi, and the post-LN wav2vec2 layout."""
+        dtype = pack_type(self.cfg, stack)
+        if stack == "ar":
+            return pack_block_weights(self.blocks, self.num_heads, dtype=dtype)
         if self.cfg.ar.audio_encoder != "wav2vec" or not self.cfg.wav2vec.do_stable_layer_norm:
             return None
-        dtype = torch.float32
-        if self.cfg.bf16_audio:
-            dtype = torch.bfloat16
-        if self.cfg.int8_ar:
-            dtype = torch.int8
         return self.audio_encoder.pack_fused(dtype)
+
+    def _kernel_pack(self, stack: str, batch: int) -> Optional[dict]:
+        """The pack ``stack``'s kernel runs a batch of ``batch`` rows with, or
+        None where the plain path runs it (``kernel_takes``). The pack that
+        ``set_precision`` built; a model that holds none packs here, from its
+        current weights, on every call: the trainer's ``fused_ar`` steps see
+        new weights every step."""
+        if not kernel_takes(self.cfg, stack, batch):
+            return None
+        if self.fused_pack is not None:
+            return self.fused_pack if stack == "ar" else self.fused_audio_pack
+        return self._pack(stack)
 
     def _run_level_fused(self, pack: dict, tokens: torch.Tensor, ada: torch.Tensor,
                          caches: Tuple[torch.Tensor, torch.Tensor], level: int) -> torch.Tensor:
@@ -397,11 +430,7 @@ class BitwiseARModel(nn.Module):
         kernel (float32 packs at batch 1 only). The condition is float32."""
         cfg = self.cfg
         enc = self.audio_encoder
-        fused_pack = None
-        if cfg.fused_ar:
-            fused_pack = self.fused_audio_pack
-            if fused_pack is None:
-                fused_pack = self.pack_fused_audio()
+        fused_pack = self._kernel_pack("encoder", audio_chunk.shape[0])
         if isinstance(enc, MimiEncoder):
             feat = enc(audio_chunk)
         elif cfg.bf16_audio:
@@ -432,15 +461,13 @@ class BitwiseARModel(nn.Module):
         code_dim = cfg.vae.code_dim
         b = audio_cond.shape[0]
         ada_full, (h_scale, h_shift) = self._fused_decode_consts(audio_cond)
-        # float32 packs run fused at batch <= 2 only, as in the JAX package
-        f32_pack = not (cfg.bf16_ar or cfg.int8_ar)
-        use_fused = cfg.fused_ar and (b <= 2 or not f32_pack)
+        pack = self._kernel_pack("ar", b)
+        use_fused = pack is not None
         cdt = torch.bfloat16 if cfg.bf16_ar else torch.float32
         wts = self._block_weights(cdt, ("k", "v") if use_fused
                                   else ("k", "v", "proj", "fc1", "fc2"))
         ada_full, prev_feat = ada_full.to(cdt), prev_feat.to(cdt)
         if use_fused:
-            pack = self.fused_pack if self.fused_pack is not None else self.pack_fused_decode()
             caches = self.init_cache_merged(prev_feat, wts)
         else:
             w_qkv, b_qkv, scale_mul = self._plain_qkv_consts(cdt)

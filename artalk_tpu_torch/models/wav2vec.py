@@ -19,9 +19,8 @@ With ``use_flash_attention`` the layer loop's attention runs through the
 flash-attention kernel (``ops/attention.py``) instead of the plain softmax.
 With a ``fused_pack`` (``pack_fused``; stable layout) the layers run as one
 launch of the encoder block-stack kernel (``ops/encoder_block_stack.py``)
-instead of the layer loop, so the flash kernel does not launch; bf16 and int8
-packs also take batches of windows, float32 packs batch 1 only, as the JAX
-package routes them.
+instead of the layer loop, so the flash kernel does not launch. The caller
+decides which batches go through the kernel (``ar_model.kernel_takes``).
 """
 
 from __future__ import annotations
@@ -32,8 +31,7 @@ from torch import nn
 
 from ..config import Wav2VecConfig
 from ..ops.attention import flash_attention
-from ..ops.encoder_block_stack import (encoder_block_stack, pack_batched_ok,
-                                       pack_encoder_weights)
+from ..ops.encoder_block_stack import encoder_block_stack, pack_encoder_weights
 from ..parallel.sharding import whole
 from . import nn as tnn
 
@@ -191,8 +189,7 @@ class Wav2VecEncoder(nn.Module):
         x = x + self._pos_conv_embed(x)
         if not stable:
             x = self.encoder.final_norm(x)
-        if (fused_pack is not None and stable
-                and (x.shape[0] == 1 or pack_batched_ok(fused_pack))):
+        if fused_pack is not None and stable:
             x = encoder_block_stack(x.float(), fused_pack, num_heads=num_heads,
                                     eps=cfg.layer_norm_eps)
             return self.encoder.final_norm(x)

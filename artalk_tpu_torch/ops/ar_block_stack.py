@@ -32,28 +32,16 @@ import torch
 
 from ..models import nn as tnn
 from ..parallel.sharding import whole
-from ..utils.metrics import GLOBAL_METRICS
-from ._nvcc import CSRC, build_library, library_lock
+from ._nvcc import CSRC, Library
 
 PackDict = Dict[str, torch.Tensor]
 
-# Launches of the CUDA kernel in this process; ar_block_stack() adds one per launch.
-LAUNCHES = 0
-# The same launches by the pack's weight type ("f32", "bf16", "int8").
-LAUNCHES_BY_PACK: Dict[str, int] = {}
-# The same launches by the products' engine: "wgmma" (bf16 and int8 packs,
-# csrc/wgmma_gemm.cuh) or "mma_f32" (float32 packs' 3xTF32 mma.sync).
-LAUNCHES_BY_ENGINE: Dict[str, int] = {}
-# Products whose contraction splits a CTA added itself (one plane written).
-FOLDED = 0
 # A planted fault for chip_smoke.py: the folded splits added last first.
 FOLD_LAST_FIRST = False
 
-SOURCE = CSRC / "ar_block_stack.cu"
+# the headers of both block-stack kernels
 HEADERS = (CSRC / "mma_stages.cuh", CSRC / "wgmma_gemm.cuh", CSRC / "block_stack_common.cuh",
            CSRC / "mma_ptx.cuh")
-BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
-_LIB = None
 
 WEIGHT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 PACK_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -71,6 +59,14 @@ class _ArParams(ctypes.Structure):
         "xa", "qkv", "attn", "h", "partial", "prof")] + [(n, ctypes.c_int) for n in (
         "B", "pn", "d", "H", "hidden", "depth", "cache_len", "start", "wtype", "ctype", "bm",
         "ln_width", "sp_proj", "sp_fc2", "plan_qkv", "plan_proj", "plan_fc1", "plan_fc2")]
+
+
+# ar_block_stack() counts each launch as "ar_block_stack", by its pack
+# ("ar_block_stack/f32", "/bf16", "/int8") and its folded products
+# ("ar_block_stack/folded")
+LIB = Library(CSRC / "ar_block_stack.cu", {
+    "artalk_ar_block_stack": (ctypes.c_int, [ctypes.POINTER(_ArParams), ctypes.c_void_p])},
+    headers=HEADERS, kernel="ar_block_stack", parts=(*PACK_NAMES.values(), "folded"))
 
 
 # ---------------------------------------------------------------------------
@@ -170,12 +166,6 @@ def pack_dtype(pack: PackDict) -> torch.dtype:
     return pack["wqkv"].dtype
 
 
-def count_pack(counts: Dict[str, int], pack: PackDict) -> None:
-    """Add one launch to ``counts`` under the pack's name."""
-    name = PACK_NAMES[pack_dtype(pack)]
-    counts[name] = counts.get(name, 0) + 1
-
-
 def weight_matmul(a: torch.Tensor, w: torch.Tensor, scales: Optional[torch.Tensor],
                   rnd) -> torch.Tensor:
     """``rnd(a) @ w`` in float32; with int8 scales (K // chunk, N), each
@@ -237,20 +227,6 @@ def ar_block_stack_plain(x: torch.Tensor, ada: torch.Tensor, pack: PackDict,
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
-
-
-def build() -> float:
-    """Build (or reuse) and load the kernel's shared library. Returns the
-    seconds spent, 0.0 when it was already loaded."""
-    global _LIB, BUILD_REPORT
-    with library_lock(SOURCE):
-        if _LIB is not None:
-            return 0.0
-        lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
-        lib.artalk_ar_block_stack.argtypes = [ctypes.POINTER(_ArParams), ctypes.c_void_p]
-        lib.artalk_ar_block_stack.restype = ctypes.c_int
-        _LIB = lib
-        return seconds
 
 
 def check_shapes(d: int, hidden: int, num_heads: int) -> None:
@@ -368,20 +344,14 @@ def launch_plans(rows: int, products, pack: PackDict, d: int, sms: int) -> list:
     return [p | fault if p & PLAN_FOLD else p for p in plans]
 
 
-def count_launch(by_pack: Dict[str, int], by_engine: Dict[str, int], pack: PackDict, plans,
-                 depth: int, kernel: str) -> int:
-    """Count a launch by pack and by the products' engine ("wgmma" for bf16
-    and int8 packs, "mma_f32" for float32 ones), and mirror the counts into
-    ``GLOBAL_METRICS`` under ``kernels.<kernel>.``; returns the products
+def count_launch(lib: Library, pack: PackDict, plans, depth: int) -> None:
+    """Count one launch of ``lib``'s kernel, by pack, and the products it
     folded (``depth`` per folded plan)."""
-    count_pack(by_pack, pack)
-    engine = "mma_f32" if pack_dtype(pack) == torch.float32 else "wgmma"
-    by_engine[engine] = by_engine.get(engine, 0) + 1
+    lib.count()
+    lib.count(PACK_NAMES[pack_dtype(pack)])
     folded = depth * sum(1 for p in plans if p & PLAN_FOLD)
-    GLOBAL_METRICS.count(f"kernels.{kernel}.{engine}")
     if folded:
-        GLOBAL_METRICS.count(f"kernels.{kernel}.folded", folded)
-    return folded
+        lib.count("folded", folded)
 
 
 def rows_alloc(m: int) -> int:
@@ -454,8 +424,7 @@ def _launch(x, ada, pack, k_cache, v_cache, start: int, num_heads: int,
             prof: Optional[torch.Tensor] = None):
     """One launch of the kernel on checked inputs; ``prof`` (int64, the
     kernel's profile slots) is added to when given."""
-    global LAUNCHES, FOLDED
-    build()
+    lib = LIB.get()
     x = x.float().contiguous()
     ada = ada.float().contiguous()
     b, pn, d = x.shape
@@ -489,9 +458,8 @@ def _launch(x, ada, pack, k_cache, v_cache, start: int, num_heads: int,
         bm=row_tile(pn), ln_width=ln_width(d, pn), sp_proj=sp_proj, sp_fc2=sp_fc2,
         plan_qkv=plans[0], plan_proj=plans[1], plan_fc1=plans[2], plan_fc2=plans[3])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    check_launch("ar_block_stack", _LIB.artalk_ar_block_stack(ctypes.byref(params), stream))
-    LAUNCHES += 1
-    FOLDED += count_launch(LAUNCHES_BY_PACK, LAUNCHES_BY_ENGINE, pack, plans, depth, "ar")
+    check_launch("ar_block_stack", lib.artalk_ar_block_stack(ctypes.byref(params), stream))
+    count_launch(LIB, pack, plans, depth)
     return feats, k_new, v_new
 
 

@@ -19,8 +19,8 @@ autograd through ``flash_attention_plain``. The bias gradient keeps the
 bias's broadcast shape. (JAX's recompute is a plain softmax, whose gradient
 is NaN on a wholly masked row; here it is 0 there.)
 
-The kernel's shared library is built with nvcc at first use from the source
-in the package, into ``_build/`` beside it, and named by the source's hash.
+The kernel's shared library is built with nvcc at first use
+(``ops/_nvcc.py``); each launch counts one ``flash_attention`` launch.
 """
 
 from __future__ import annotations
@@ -30,18 +30,16 @@ from typing import Optional
 
 import torch
 
-from ._nvcc import CSRC, build_library, library_lock
+from ._nvcc import CSRC, Library
 
 NEG_INF = -1e30   # the running max's start, as in the JAX kernel
 MAX_HEAD_DIM = 128
 
-# Launches of the CUDA kernel in this process; flash_attention() adds one per launch.
-LAUNCHES = 0
-
-SOURCE = CSRC / "flash_attention.cu"
-HEADERS = (CSRC / "mma_ptx.cuh",)
-BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
-_FN = None   # the bound entry point of the loaded library
+LIB = Library(CSRC / "flash_attention.cu", {
+    "artalk_flash_attention": (ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                               + [ctypes.c_float] + [ctypes.c_longlong] * 4
+                               + [ctypes.c_int, ctypes.c_void_p])},
+    headers=(CSRC / "mma_ptx.cuh",), kernel="flash_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,26 +56,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def build() -> float:
-    """Build (or reuse) and load the kernel's shared library. Returns the
-    seconds spent, 0.0 when it was already loaded."""
-    global _FN, BUILD_REPORT
-    with library_lock(SOURCE):
-        if _FN is not None:
-            return 0.0
-        lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
-        fn = lib.artalk_flash_attention
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                       + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-        return seconds
-
-
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """One launch of the kernel on CUDA tensors, after checking them."""
-    global LAUNCHES
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: want q (B, H, Lq, hd), k and v (B, H, Lk, hd)")
     b, h, lq, hd = q.shape
@@ -100,16 +81,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # a view, strides 0 where broadcast (.float() copies only another dtype)
         bias = torch.broadcast_to(bias.float(), (b, h, lq, lk))
         strides = bias.stride()
-    build()
+    fn = LIB.get().artalk_flash_attention
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     # the current stream's handle as an int, without building a Stream object
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
-    err = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-              out.data_ptr(), b * h, h, lq, lk, hd, scale, *strides, _DTYPES[q.dtype], stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+             out.data_ptr(), b * h, h, lq, lk, hd, scale, *strides, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LIB.count()
     return out
 
 

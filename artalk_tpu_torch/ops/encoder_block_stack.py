@@ -23,27 +23,11 @@ import torch
 
 from ..models import nn as tnn
 from ..parallel.sharding import whole
-from ._nvcc import CSRC, build_library, library_lock
-from .ar_block_stack import (PLAN_FOLD, WEIGHT_TYPES, PackDict, check_launch, check_pack,
-                             check_shapes, count_launch, launch_plans, layer_mats, pack_dtype,
-                             pack_weights, ptr, rounder, rows_alloc, softmax_attend,
-                             weight_matmul)
-
-# Launches of the CUDA kernel in this process; encoder_block_stack() adds one per launch.
-LAUNCHES = 0
-# The same launches by the pack's weight type ("f32", "bf16", "int8").
-LAUNCHES_BY_PACK: dict = {}
-# The same launches by the products' engine: "wgmma" (bf16 and int8 packs) or
-# "mma_f32" (float32 packs).
-LAUNCHES_BY_ENGINE: dict = {}
-# Products whose contraction splits a CTA added itself (one plane written).
-FOLDED = 0
-
-SOURCE = CSRC / "encoder_block_stack.cu"
-HEADERS = (CSRC / "mma_stages.cuh", CSRC / "wgmma_gemm.cuh", CSRC / "block_stack_common.cuh",
-           CSRC / "mma_ptx.cuh")
-BUILD_REPORT = ""   # nvcc's register and shared-memory report of the last fresh build
-_LIB = None
+from ._nvcc import CSRC, Library
+from .ar_block_stack import (HEADERS, PACK_NAMES, PLAN_FOLD, WEIGHT_TYPES, PackDict,
+                             check_launch, check_pack, check_shapes, count_launch, launch_plans,
+                             layer_mats, pack_dtype, pack_weights, ptr, rounder, rows_alloc,
+                             softmax_attend, weight_matmul)
 
 
 class _EncParams(ctypes.Structure):
@@ -58,6 +42,11 @@ class _EncParams(ctypes.Structure):
                                 "plan_fc2")]
 
 
+# encoder_block_stack() counts its launches as the AR stack's are counted,
+# under "encoder_block_stack"
+LIB = Library(CSRC / "encoder_block_stack.cu", {
+    "artalk_encoder_block_stack": (ctypes.c_int, [ctypes.POINTER(_EncParams), ctypes.c_void_p])},
+    headers=HEADERS, kernel="encoder_block_stack", parts=(*PACK_NAMES.values(), "folded"))
 HEAD_DIM = 64        # the kernel's head dim (wav2vec2: 1024 / 16)
 TILE_M, TILE_N, TILE_K = 128, 128, 64   # the split rule's tile (the float32 packs' split tiles)
 
@@ -102,13 +91,6 @@ def pack_encoder_weights(layers, dtype: torch.dtype = torch.float32) -> PackDict
     return pack
 
 
-def pack_batched_ok(pack: PackDict) -> bool:
-    """May this pack run at batch > 1 (several windows)? The JAX package keeps
-    float32 packs on the layer-by-layer path there (its half-width float32
-    tiles are a parity mode, not a speed path), and the port routes alike."""
-    return pack_dtype(pack) != torch.float32
-
-
 def encoder_block_stack_plain(x: torch.Tensor, pack: PackDict, *, num_heads: int,
                               eps: float = 1e-5) -> torch.Tensor:
     """Plain-torch version of ``encoder_block_stack``, window by window."""
@@ -133,27 +115,12 @@ def encoder_block_stack_plain(x: torch.Tensor, pack: PackDict, *, num_heads: int
     return x
 
 
-def build() -> float:
-    """Build (or reuse) and load the kernel's shared library. Returns the
-    seconds spent, 0.0 when it was already loaded."""
-    global _LIB, BUILD_REPORT
-    with library_lock(SOURCE):
-        if _LIB is not None:
-            return 0.0
-        lib, seconds, BUILD_REPORT = build_library(SOURCE, HEADERS)
-        lib.artalk_encoder_block_stack.argtypes = [ctypes.POINTER(_EncParams), ctypes.c_void_p]
-        lib.artalk_encoder_block_stack.restype = ctypes.c_int
-        _LIB = lib
-        return seconds
-
-
 def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
                         eps: float = 1e-5) -> torch.Tensor:
     """Run (B, T, d) tokens (B windows) through the whole pre-LN encoder stack;
     returns (B, T, d) float32. A CPU tensor goes through
     ``encoder_block_stack_plain``. A DTensor (a tensor-parallel model's
     activations) goes in whole (``parallel.sharding.whole``)."""
-    global LAUNCHES, FOLDED
     x = whole(x)
     if x.device.type == "cpu":
         return encoder_block_stack_plain(x, pack, num_heads=num_heads, eps=eps)
@@ -170,7 +137,7 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
     if pack["wqkv"].shape != (depth, d, 3 * d):
         raise ValueError(f"pack wqkv {tuple(pack['wqkv'].shape)} does not fit d={d}")
     check_pack(pack, x.device)
-    build()
+    lib = LIB.get()
     x = x.float().contiguous()
     m = b * t
     dev = x.device
@@ -200,7 +167,6 @@ def encoder_block_stack(x: torch.Tensor, pack: PackDict, *, num_heads: int,
         plan_fc2=plans[3])
     stream = torch.cuda.current_stream(dev).cuda_stream
     check_launch("encoder_block_stack",
-                 _LIB.artalk_encoder_block_stack(ctypes.byref(params), stream))
-    LAUNCHES += 1
-    FOLDED += count_launch(LAUNCHES_BY_PACK, LAUNCHES_BY_ENGINE, pack, plans, depth, "encoder")
+                 lib.artalk_encoder_block_stack(ctypes.byref(params), stream))
+    count_launch(LIB, pack, plans, depth)
     return y

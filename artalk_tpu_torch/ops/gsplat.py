@@ -44,7 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._nvcc import CSRC, build_library, library_lock
+from ._nvcc import CSRC, Library
 from .sort import sort_keys
 
 CHANNELS = 32
@@ -63,12 +63,10 @@ CULL_TAU = 1e-4         # kCullTau, kCullPx)
 CULL_PX = 1.0 / 64.0
 _PLAIN_CHUNK = 1024  # instances per step of splat_tiles_plain
 
-# Launches of the CUDA kernel in this process; splat_tiles() adds one per launch.
-LAUNCHES = 0
-
-SOURCE = CSRC / "gsplat.cu"
-BUILD_REPORT = ""
-_LIB = None
+LIB = Library(CSRC / "gsplat.cu", {
+    "artalk_gsplat": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p])}, kernel="gsplat")
 
 
 def _project_components(xyz: torch.Tensor, scales: torch.Tensor, rotations: torch.Tensor,
@@ -223,27 +221,10 @@ def prepass(xyz, colors, opacities, scales, rotations, cam_matrix, focal: float 
     return geo, colors, inst, offsets
 
 
-def build() -> float:
-    """Build (or reuse) and load the kernel's shared library. Returns the
-    seconds spent, 0.0 when it was already loaded."""
-    global _LIB, BUILD_REPORT
-    with library_lock(SOURCE):
-        if _LIB is not None:
-            return 0.0
-        lib, seconds, BUILD_REPORT = build_library(SOURCE)
-        fn = lib.artalk_gsplat
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-        return seconds
-
-
 def splat_tiles(geo: torch.Tensor, colors: torch.Tensor, inst: torch.Tensor,
                 offsets: torch.Tensor, size: int) -> torch.Tensor:
     """Composite every tile's instance segment with the CUDA kernel ->
     (32, size, size) float32 on a black background. CUDA tensors only."""
-    global LAUNCHES
     dev = geo.device
     if dev.type != "cuda":
         raise ValueError(f"splat_tiles: the kernel takes CUDA tensors, got {dev}")
@@ -265,15 +246,14 @@ def splat_tiles(geo: torch.Tensor, colors: torch.Tensor, inst: torch.Tensor,
         raise ValueError("splat_tiles: all inputs must be on one device")
     if size % GTILE_H or size % GTILE_W:
         raise ValueError(f"size {size} must be a multiple of {GTILE_W}")
-    build()
+    fn = LIB.get().artalk_gsplat
     out = torch.empty((CHANNELS, size, size), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _LIB.artalk_gsplat(geo.data_ptr(), colors.data_ptr(),
-                             int(colors.dtype == torch.bfloat16), inst.data_ptr(),
-                             offsets.data_ptr(), size, out.data_ptr(), stream)
+    err = fn(geo.data_ptr(), colors.data_ptr(), int(colors.dtype == torch.bfloat16),
+             inst.data_ptr(), offsets.data_ptr(), size, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"gsplat kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LIB.count()
     return out
 
 

@@ -17,9 +17,12 @@ import ctypes
 
 import numpy as np
 
-from ._nvcc import CSRC, build_library
+from ._nvcc import CSRC, Library
 
-SOURCE = CSRC / "motion_json.cpp"
+LIB = Library(CSRC / "motion_json.cpp", {
+    "motion_json_value_max": (ctypes.c_int, []),
+    "motion_json": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_void_p, ctypes.c_int64])})
 # '{"frames": ', up to 20 digits, ', "motion": [' and ']}'
 HEAD_MAX = 64
 # a row's '[', ']' and the ', ' before it
@@ -32,15 +35,9 @@ class MotionJSON:
     """The loaded writer; making one builds the library, or finds it built."""
 
     def __init__(self):
-        lib, _, _ = build_library(SOURCE)
-        lib.motion_json_value_max.argtypes = []
-        lib.motion_json_value_max.restype = ctypes.c_int
+        lib = LIB.get()
         self.value_max = lib.motion_json_value_max()
-        fn = lib.motion_json
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_int64]
-        fn.restype = ctypes.c_int64
-        self._write = fn
+        self._write = lib.motion_json
 
     def bound(self, frames: int, width: int) -> int:
         """Bytes enough for the body of any float32 (frames, width) array:

@@ -15,8 +15,8 @@ lexicographic minimum of ``(z_bits & ~0xFF, face_id)``; zbuf holds that
 truncated depth (``BIG`` for background) and face_id the winner (-1 for
 background).
 
-The kernel's shared library is built with nvcc at first use from the source
-in the package, into ``_build/`` beside it, and named by the source's hash.
+The kernels' shared library is built with nvcc at first use
+(``ops/_nvcc.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from ._nvcc import CSRC, build_library, library_lock
+from ._nvcc import CSRC, Library
 
 FACE_CHUNK = 128   # faces per culling chunk
 BIG = 3.4e38
@@ -41,11 +41,13 @@ _SUM_SLACK = 2.0 ** -23
 _UNDERFLOW = 2.0 ** -120
 _MAP_ERR = 2.0 ** -48
 
-# Launches of the CUDA kernel in this process; rasterize() adds one per launch.
-LAUNCHES = 0
-
-SOURCE = CSRC / "rasterizer.cu"
-_LIB = None
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# rasterize() counts one "rasterize" launch per call (the setup and raster
+# kernels together)
+LIB = Library(CSRC / "rasterizer.cu", {
+    "artalk_rasterize": (_I32, [_PTR, _PTR] + [_I32] * 5 + [_PTR] * 6),
+    "artalk_rasterize_setup": (_I32, [_PTR, _PTR] + [_I32] * 5 + [_PTR] * 4),
+    "artalk_rasterize_tiles": (_I32, [_PTR] * 3 + [_I32] * 3 + [_PTR] * 3)}, kernel="rasterize")
 
 
 def face_planes(verts_screen: torch.Tensor, faces: torch.Tensor
@@ -213,7 +215,7 @@ def kernel_inputs(verts_screen: torch.Tensor, faces: torch.Tensor, *, height: in
     verts_screen, faces = _check(verts_screen, faces)
     planes, boxes, chunks = _scratch(faces.shape[0], verts_screen.device)
     stream = torch.cuda.current_stream(verts_screen.device).cuda_stream
-    err = _LIB.artalk_rasterize_setup(
+    err = LIB.get().artalk_rasterize_setup(
         verts_screen.data_ptr(), faces.data_ptr(), faces.element_size(), verts_screen.shape[0],
         faces.shape[0], height, width, planes.data_ptr(), boxes.data_ptr(), chunks.data_ptr(),
         stream)
@@ -222,29 +224,9 @@ def kernel_inputs(verts_screen: torch.Tensor, faces: torch.Tensor, *, height: in
     return planes, boxes, chunks
 
 
-def build() -> float:
-    """Build (or reuse) and load the kernels' shared library. Returns the
-    seconds spent, 0.0 when it was already loaded."""
-    global _LIB
-    with library_lock(SOURCE):
-        if _LIB is not None:
-            return 0.0
-        lib, seconds, _ = build_library(SOURCE)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.artalk_rasterize.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
-                                         ptr, ptr]
-        lib.artalk_rasterize_setup.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr,
-                                               ptr]
-        lib.artalk_rasterize_tiles.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
-        for fn in (lib.artalk_rasterize, lib.artalk_rasterize_setup, lib.artalk_rasterize_tiles):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-        return seconds
-
-
 def _check(verts_screen: torch.Tensor, faces: torch.Tensor):
     """What the kernels take: (V, 3) float32 verts and (F, 3) int32 or int64
-    faces, contiguous, on one CUDA device. Builds the library."""
+    faces, contiguous, on one CUDA device."""
     if verts_screen.device.type != "cuda":
         raise ValueError(f"rasterize: unsupported device {verts_screen.device}")
     if verts_screen.dtype != torch.float32 or verts_screen.ndim != 2 or verts_screen.shape[1] != 3:
@@ -253,7 +235,6 @@ def _check(verts_screen: torch.Tensor, faces: torch.Tensor):
     if (faces.device != verts_screen.device or faces.ndim != 2 or faces.shape[1] != 3
             or faces.dtype not in (torch.int32, torch.int64)):
         raise ValueError("rasterize: faces must be (F, 3) int32 or int64 on the verts' device")
-    build()
     return verts_screen.contiguous(), faces.contiguous()
 
 
@@ -276,7 +257,6 @@ def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor, *,
     background; face_id (H, W) int32, -1 for background). A CUDA tensor goes
     through the two CUDA kernels (setup, raster), a CPU tensor through
     ``rasterize_plain``."""
-    global LAUNCHES
     if verts_screen.device.type == "cpu":
         return rasterize_plain(verts_screen, faces, height=height, width=width)
     verts_screen, faces = _check(verts_screen, faces)
@@ -284,13 +264,13 @@ def rasterize(verts_screen: torch.Tensor, faces: torch.Tensor, *,
     planes, boxes, chunks = _scratch(faces.shape[0], dev)
     zbuf = torch.empty((height, width), dtype=torch.float32, device=dev)
     fid = torch.empty((height, width), dtype=torch.int32, device=dev)
-    err = _LIB.artalk_rasterize(
+    err = LIB.get().artalk_rasterize(
         verts_screen.data_ptr(), faces.data_ptr(), faces.element_size(), verts_screen.shape[0],
         faces.shape[0], height, width, planes.data_ptr(), boxes.data_ptr(), chunks.data_ptr(),
         zbuf.data_ptr(), fid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LIB.count()
     return zbuf, fid
 
 

@@ -20,6 +20,9 @@ at i and i ^ j so that the smaller comes first where bit k of i is 0 and last
 where it is 1. It is independent of ``torch.sort``.
 
 The kernel's shared library is built with nvcc at first use (``ops/_nvcc.py``).
+Each call that launches the kernel counts one ``sort`` launch, and the CUDA
+launches inside it (6 for n > 0: init, histogram, one per 8-bit digit, as the
+entry point reports them) under ``sort/cuda``.
 """
 
 from __future__ import annotations
@@ -28,21 +31,15 @@ import ctypes
 
 import torch
 
-from ._nvcc import CSRC, build_library, library_lock
+from ._nvcc import CSRC, Library
 
 INT32_MAX = 2 ** 31 - 1
 MAX_KEYS = 2 ** 30 - 1   # the look-back status words keep 30 bits of count
 
-# Calls of sort_keys() that launched the kernel in this process (one per call,
-# whatever the number of CUDA launches inside it).
-LAUNCHES = 0
-# CUDA launches those calls made, as the entry point of csrc/sort.cu reports
-# them (6 for one call with n > 0: init, histogram, one per 8-bit digit).
-CUDA_LAUNCHES = 0
-
-SOURCE = CSRC / "sort.cu"
-BUILD_REPORT = ""
-_LIB = None
+LIB = Library(CSRC / "sort.cu", {
+    "artalk_sort_keys": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                         + [ctypes.POINTER(ctypes.c_int)]),
+    "artalk_sort_meta_words": (ctypes.c_longlong, [ctypes.c_int])}, kernel="sort", parts=("cuda",))
 
 
 def padded_length(n: int) -> int:
@@ -58,29 +55,10 @@ def _check(keys: torch.Tensor) -> None:
         raise ValueError(f"sort_keys: at most {MAX_KEYS} keys, got {keys.shape[0]}")
 
 
-def build() -> float:
-    """Build (or reuse) and load the kernel's shared library. Returns the
-    seconds spent, 0.0 when it was already loaded."""
-    global _LIB, BUILD_REPORT
-    with library_lock(SOURCE):
-        if _LIB is not None:
-            return 0.0
-        lib, seconds, BUILD_REPORT = build_library(SOURCE)
-        lib.artalk_sort_keys.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                                         + [ctypes.POINTER(ctypes.c_int)])
-        lib.artalk_sort_keys.restype = ctypes.c_int
-        lib.artalk_sort_meta_words.argtypes = [ctypes.c_int]
-        lib.artalk_sort_meta_words.restype = ctypes.c_longlong
-        _LIB = lib
-        return seconds
-
-
 def sort_keys(keys: torch.Tensor) -> torch.Tensor:
     """``keys`` (n,) int32 sorted ascending (signed), as a new tensor. A CUDA
-    tensor goes through the kernel (on the current stream; the CUDA launches
-    it makes are added to ``CUDA_LAUNCHES``), a CPU tensor through
-    ``sort_keys_plain``."""
-    global LAUNCHES, CUDA_LAUNCHES
+    tensor goes through the kernel (on the current stream), a CPU tensor
+    through ``sort_keys_plain``."""
     dev = keys.device
     if dev.type == "cpu":
         return sort_keys_plain(keys)
@@ -90,18 +68,18 @@ def sort_keys(keys: torch.Tensor) -> torch.Tensor:
     n = keys.shape[0]
     if n == 0:
         return keys.clone()
-    build()
+    lib = LIB.get()
     out = torch.empty(n, dtype=torch.int32, device=dev)
     # the ping-pong buffer and the histogram / look-back words, in one allocation
-    work = torch.empty(n + _LIB.artalk_sort_meta_words(n), dtype=torch.int32, device=dev)
+    work = torch.empty(n + lib.artalk_sort_meta_words(n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     launched = ctypes.c_int(0)
-    err = _LIB.artalk_sort_keys(keys.data_ptr(), n, out.data_ptr(), work.data_ptr(),
-                                work[n:].data_ptr(), stream, ctypes.byref(launched))
+    err = lib.artalk_sort_keys(keys.data_ptr(), n, out.data_ptr(), work.data_ptr(),
+                               work[n:].data_ptr(), stream, ctypes.byref(launched))
     if err != 0:
         raise RuntimeError(f"sort kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    CUDA_LAUNCHES += launched.value
+    LIB.count()
+    LIB.count("cuda", launched.value)
     return out
 
 

@@ -2,67 +2,45 @@
 
 Counterpart of ``artalk_tpu/runtime/media.py``: the same functions, the same
 fallbacks, and the C++ source copied into ``native/media.cpp``. The library
-is built with ``g++ -O3 -march=native`` (the JAX package's flags) at first
-use into the package's gitignored ``_build/``, named by a hash of the source.
+is declared and built as the port's other native libraries are
+(``ops/_nvcc.py``), with ``-O3 -march=native`` (the JAX package's flags, so
+both resample to the same samples on one host), at first use. Where it does
+not build (no compiler), every entry point takes its fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-_SRC = os.path.join(os.path.dirname(__file__), "native", "media.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+from ..ops._nvcc import Library
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_I64 = ctypes.c_int64
+LIB = Library(Path(__file__).resolve().parent / "native" / "media.cpp", {
+    "rgb_to_yuv420": (ctypes.c_int, [ctypes.c_void_p, _I64, _I64, _I64, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_void_p]),
+    "write_y4m": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_void_p, _I64, _I64, _I64,
+                                 ctypes.c_int, ctypes.c_int]),
+    "resample_poly_f32": (_I64, [ctypes.c_void_p, _I64, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p])},
+    flags=("-O3", "-march=native"))
 _build_failed = False
 
 
-def _build() -> Optional[ctypes.CDLL]:
-    global _build_failed
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(_BUILD_DIR, f"libartalk_media-{digest}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", tmp, _SRC]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True)
-        except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            _build_failed = True
-            print(f"[artalk_tpu_torch.runtime] native build failed ({e}); "
-                  "using NumPy fallbacks")
-            return None
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
-    lib.rgb_to_yuv420.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.write_y4m.argtypes = [
-        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int]
-    lib.write_y4m.restype = ctypes.c_int
-    lib.resample_poly_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.resample_poly_f32.restype = ctypes.c_int64
-    return lib
-
-
 def _get_lib() -> Optional[ctypes.CDLL]:
-    global _lib
-    with _lock:
-        if _lib is None and not _build_failed:
-            _lib = _build()
-        return _lib
+    """The loaded library, or None (after one notice) where it does not build."""
+    global _build_failed
+    if _build_failed:
+        return None
+    try:
+        return LIB.get()
+    except (RuntimeError, OSError) as e:
+        _build_failed = True
+        print(f"[artalk_tpu_torch.runtime] native build failed ({e}); using NumPy fallbacks")
+        return None
 
 
 def native_available() -> bool:

@@ -18,9 +18,8 @@ copy to the host, which waits for the device; with the thread's CPU time).
 After the download the device-timed spans of the step (the Mimi encoder's
 stages) get their ``device_us``.
 
-With ``ARTALK_AR_PRECISION=fast`` or ``int8`` (``bf16_ar`` / ``int8_ar``) the
-batched decode runs the AR block-stack kernel at any batch; float32 packs
-keep the kernel to batch <= 2, as in the JAX package.
+The pool decodes in the model's precision mode (``BitwiseARModel.set_precision``),
+with the routing rules of ``models/ar_model.kernel_takes``.
 
 Usage::
 
@@ -40,7 +39,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .engine import build_fused_packs
 from .models.ar_model import BitwiseARModel, WindowState
 from .utils.metrics import GLOBAL_METRICS
 
@@ -54,7 +52,7 @@ class StreamPool:
 
     def __init__(self, model: BitwiseARModel, max_sessions: int = 4):
         self.model = model
-        build_fused_packs(model)
+        model.set_precision(model.cfg)
         self.device = model.pos_embed.device
         self.capacity = int(max_sessions)
         cfg = model.cfg
@@ -184,10 +182,9 @@ def _demo(argv=None) -> None:
     import os
     import time
 
-    from .config import ModelConfig, load_config
-    from .engine import _resolve_ar_precision, resolve_device
+    from .config import assets_config, precision_from_env
     from .utils.audio import load_audio_16k_mono
-    from .utils.params import load_params_npz, params_from_flat
+    from .utils.params import load_model
 
     ap = argparse.ArgumentParser(description=_demo.__doc__)
     ap.add_argument("--audio_path", "-a", required=True)
@@ -198,17 +195,10 @@ def _demo(argv=None) -> None:
     if args.sessions < 1:
         ap.error("--sessions must be >= 1")
 
-    device = resolve_device(args.device)
-    cfg_path = os.path.join(args.assets, "config.json")
-    cfg = _resolve_ar_precision(load_config(cfg_path) if os.path.exists(cfg_path)
-                                else ModelConfig())
-    ckpt = os.path.join(args.assets, "artalk_params.npz")
-    if os.path.exists(ckpt):
-        model = params_from_flat(load_params_npz(ckpt), cfg)
-    else:
-        print(f"[artalk_tpu_torch] no checkpoint at {ckpt}; random weights")
-        model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0))
-    pool = StreamPool(model.to(device), max_sessions=args.sessions)
+    model = load_model(precision_from_env(assets_config(args.assets)),
+                       checkpoint=os.path.join(args.assets, "artalk_params.npz"),
+                       device=args.device)
+    pool = StreamPool(model, max_sessions=args.sessions)
     audio = load_audio_16k_mono(args.audio_path)
     ws = pool.window_samples
     windows = [audio[i:i + ws] for i in range(0, len(audio), ws)]

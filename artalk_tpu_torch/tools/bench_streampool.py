@@ -12,27 +12,26 @@ streams.
     python -m artalk_tpu_torch.tools.bench_streampool [--sizes 1,2,4,8,16,32] [--iters 10]
 
 The precision follows ``ARTALK_AR_PRECISION`` / ``ARTALK_AR_FUSED``, as the
-serving entry point reads them (``engine._resolve_ar_precision``); the
-weights are random from seed 0, one model for every B with its packs built
-once. Float32 packs (``ARTALK_AR_FUSED=1`` alone) run the AR block-stack
-kernel at B <= 2 and the encoder kernel at B = 1 only (the JAX package's
-routing rules): at larger B the curve times plain torch. bf16 and int8
+serving entry point reads them (``config.precision_from_env``); the weights
+are random from seed 0, one model for every B with its packs built once.
+Float32 packs (``ARTALK_AR_FUSED=1`` alone) run the AR block-stack kernel at
+B <= 2 and the encoder kernel at B = 1 only (the JAX package's routing
+rules): at larger B the curve times plain torch. bf16 and int8
 packs (``fast`` + fused, ``int8``) run both kernels at every B.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..config import ModelConfig
-from ..engine import _resolve_ar_precision, build_fused_packs, resolve_device
-from ..models.ar_model import BitwiseARModel
+from ..config import ModelConfig, precision_from_env, precision_mode
+from ..engine import resolve_device
 from ..serving import StreamPool
+from ..utils.params import load_model
 from ..utils.timing import pipelined_ms
 from . import device_line
 
@@ -59,12 +58,9 @@ def main(argv: Optional[list] = None, device: Union[str, torch.device] = "cuda",
     args = p.parse_args(argv)
     sizes = [int(s) for s in args.sizes.split(",")]
     dev = resolve_device(device)
-    print(f"{device_line(dev)}  precision={os.environ.get('ARTALK_AR_PRECISION', 'exact')}",
-          flush=True)
-
-    cfg = _resolve_ar_precision(config or ModelConfig())
-    model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0)).to(dev)
-    build_fused_packs(model)
+    cfg = precision_from_env(config or ModelConfig())
+    print(f"{device_line(dev)}  precision={precision_mode(cfg)}", flush=True)
+    model = load_model(cfg, device=dev)
 
     rng = np.random.default_rng(0)
     window_s = cfg.vae.window / cfg.fps

@@ -36,12 +36,12 @@ import torch
 
 from ..bench import ASSETS
 from ..config import ModelConfig
-from ..engine import build_fused_packs, resolve_device
-from ..models.ar_model import BitwiseARModel
+from ..engine import resolve_device
 from ..models.flame import FlameModel
 from ..models.renderer import MeshRenderer
 from ..ops.savgol import smooth_motion_savgol
 from ..utils.assets import load_or_synthesize_flame
+from ..utils.params import load_model
 from ..utils.timing import timed
 from . import device_line
 
@@ -72,8 +72,7 @@ def main(argv: Optional[list] = None, device: Union[str, torch.device] = "cuda",
     print(f"{device_line(dev)}   iters: {it}\n", flush=True)
 
     cfg = dataclasses.replace(config or ModelConfig(), **PRECISIONS[args.precision])
-    model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0)).to(dev)
-    build_fused_packs(model)
+    model = load_model(cfg, device=dev)
     rng = np.random.default_rng(0)
     ws = model.window_samples
     chunks = torch.from_numpy(rng.standard_normal(

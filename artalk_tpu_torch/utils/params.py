@@ -16,7 +16,8 @@ re-exported here.
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -27,7 +28,7 @@ from .checkpoint import (SEP, flat_from_module, flatten_params, load_flat_into, 
                          save_params_npz)
 
 __all__ = ["SEP", "flatten_params", "save_params_npz", "flat_from_module", "load_params_npz",
-           "params_from_flat", "gagavatar_from_flat", "load_flat_into"]
+           "params_from_flat", "load_model", "gagavatar_from_flat", "load_flat_into"]
 
 
 def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig) -> BitwiseARModel:
@@ -36,6 +37,30 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig) -> BitwiseAR
     ValueError for one whose shape differs; keys the model has no use for are
     ignored, as the JAX loader ignores them."""
     return load_flat_into(BitwiseARModel(cfg), flat)
+
+
+def load_model(config: ModelConfig, params: Optional[Dict[str, np.ndarray]] = None,
+               checkpoint: Optional[str] = None, seed: int = 0,
+               device: Union[str, torch.device] = "cuda") -> BitwiseARModel:
+    """The AR model for ``config`` on ``device``, in ``config``'s precision
+    mode with its weight packs built there (``set_precision``): weights from
+    ``params`` (a flat JAX parameter dict), else from the .npz at
+    ``checkpoint`` where it exists, else random from
+    ``torch.Generator().manual_seed(seed)`` (with a notice when a
+    ``checkpoint`` was named)."""
+    if params is None and checkpoint is not None:
+        if os.path.exists(checkpoint):
+            params = load_params_npz(checkpoint)
+        else:
+            print(f"[artalk_tpu_torch] no checkpoint at {checkpoint}; "
+                  "initializing random weights")
+    if params is None:
+        model = BitwiseARModel(config).init(torch.Generator().manual_seed(seed))
+    else:
+        model = params_from_flat(params, config)
+    model = model.to(device)
+    model.set_precision(config)
+    return model
 
 
 def gagavatar_from_flat(flat: Dict[str, np.ndarray]) -> torch.nn.Module:

@@ -33,7 +33,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..ops import ar_block_stack, attention, encoder_block_stack, gsplat, rasterizer, sort
+from ..ops._nvcc import launches
 
 HBM_BYTES_PER_S = 3.35e12    # HBM3
 FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
@@ -191,10 +191,6 @@ def sort_work(n: int) -> Work:
     return Work(0.0, 8 * n)
 
 
-# kernel wrappers whose launch counters ``count`` reads
-KERNELS = {"rasterize": rasterizer, "ar_block_stack": ar_block_stack,
-           "encoder_block_stack": encoder_block_stack, "gsplat": gsplat,
-           "flash_attention": attention, "sort": sort}
 # ops that only allocate: they move no bytes
 _ALLOCATIONS = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default,
                 torch.ops.aten.empty_like.default, torch.ops.aten.new_empty.default,
@@ -224,21 +220,24 @@ def count(fn: Callable[[], object],
     """Run ``fn()`` once and return its work: the FLOPs that
     ``FlopCounterMode`` counts over its aten ops, and the bytes of their
     operands and results (the eager counterpart of XLA's "bytes accessed"),
-    plus the declared kernel launches' work. ``kernels`` maps a name of
-    ``KERNELS`` to (launches, their total work); every kernel left out is
-    declared at 0 launches. Raises RuntimeError when a wrapper's launch
-    count differs from what was declared: a kernel that quietly fell back
-    to its plain version would otherwise shrink the count unnoticed."""
+    plus the declared kernel launches' work. ``kernels`` maps a kernel's
+    name in ``ops._nvcc.launches()`` to (launches, their total work); every
+    kernel left out is declared at 0 launches. Raises RuntimeError when a
+    kernel's launch count differs from what was declared: a kernel that
+    quietly fell back to its plain version would otherwise shrink the count
+    unnoticed."""
     kernels = kernels or {}
-    unknown = set(kernels) - set(KERNELS)
+    before = launches()
+    known = [name for name in before if "/" not in name]
+    unknown = set(kernels) - set(known)
     if unknown:
-        raise ValueError(f"unknown kernels {sorted(unknown)}; known: {sorted(KERNELS)}")
-    before = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+        raise ValueError(f"unknown kernels {sorted(unknown)}; known: {sorted(known)}")
     flops, nbytes = FlopCounterMode(display=False), _BytesMode()
     with flops, nbytes:
         fn()
-    launched = {name: mod.LAUNCHES - before[name] for name, mod in KERNELS.items()}
-    declared = {name: kernels[name][0] if name in kernels else 0 for name in KERNELS}
+    after = launches()
+    launched = {name: after[name] - before[name] for name in known}
+    declared = {name: kernels[name][0] if name in kernels else 0 for name in known}
     if launched != declared:
         raise RuntimeError(f"kernel launches {launched}, declared {declared}")
     return sum((work for _, work in kernels.values()),

@@ -59,7 +59,9 @@ def write_video(frames: np.ndarray, path: str, fps: float = 25.0,
         return path
     try:
         return _write_y4m_wav(frames, path, fps, audio, sample_rate, pix_fmt)
-    except OSError as e:
+    except (OSError, RuntimeError, ValueError) as e:
+        # the tier's own failures (a file it cannot write, the native writer's
+        # refusal of odd-sized RGB frames), as JAX falls back on them
         print(f"[artalk_tpu_torch] y4m writer failed ({e}); falling back to npz")
     alt = os.path.splitext(path)[0] + ".npz"
     np.savez_compressed(alt, frames=frames, fps=fps,

@@ -265,7 +265,7 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      launched at least once); then the int8 packs at the stream cells'
      shapes (the AR stack per level at B = 1, 140 and 408, the encoder at 1
      and 140 windows) beside their bounds at that batch, and the block
-     stacks' launches by engine (wgmma or mma_f32) and products folded.
+     stacks' launches by pack and products folded (ops/_nvcc.launches).
 
  35. the measurement tools (artalk_tpu_torch/tools/): first, StreamPool at
      B = 32 (3200 rows a level at pn 100) right after phase 5 on its exact
@@ -292,7 +292,7 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      rasterizer alone); profile_encoder --iters 3 --fused; profile_gsplat
      --iters 5 (S3 equal to prepass bit for bit); profile_gaga --k 8. Each
      tool's lines parse with finite times, and its kernel launches, the
-     block stacks' counted by pack (LAUNCHES_BY_PACK), equal what its run
+     block stacks' counted by pack (ops/_nvcc.launches), equal what its run
      makes (bounded for the HTTP ticks, which the clients' timing decides);
      the kernels line lists them under "tool_launches", and the B = 32
      kernel checks under "wide".
@@ -354,7 +354,6 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from artalk_tpu_torch import bench
 from artalk_tpu_torch import config as tcfg
-from artalk_tpu_torch import engine as engine_mod
 from artalk_tpu_torch import evaluation
 from artalk_tpu_torch.engine import ARTAvatarInferEngine
 from artalk_tpu_torch.models.flame import FlameModel
@@ -375,6 +374,7 @@ from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
 from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
 from artalk_tpu_torch.ops import sort
+from artalk_tpu_torch.ops._nvcc import kernel_libraries, launches
 from artalk_tpu_torch.ops.colorspace import rgb_to_yuv420p
 from artalk_tpu_torch.ops.resample1d import resize_area
 from artalk_tpu_torch.parallel import make_mesh, shard_params
@@ -535,7 +535,7 @@ TOOL_RUNS = (
     ("profile_gsplat", ["--iters", "5"], {}),
     ("profile_gaga", ["--k", "8"], {}),
 )
-PACKS = ("f32", "bf16", "int8")
+PACKS = tuple(ar_stack.PACK_NAMES.values())
 # a timed line of a tool: its label, then ms (ms/tick, ms/chunk)
 TOOL_LINE = re.compile(r"^\s*(\S.*?)\s+(-?[\d.]+|nan|inf) ms(/tick|/chunk)?\b", re.M)
 
@@ -562,30 +562,45 @@ def phase_device() -> str:
     return smi
 
 
+# the launch counter's kernels (ops/_nvcc.launches) under the names this smoke
+# reports them by
+SHORT = {"ar_block_stack": "ar", "encoder_block_stack": "encoder", "flash_attention": "flash"}
+_ZERO: dict = {}
+
+
 def zero_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    rasterizer.LAUNCHES = ar_stack.LAUNCHES = enc_stack.LAUNCHES = gsplat.LAUNCHES = 0
-    attention.LAUNCHES = sort.LAUNCHES = sort.CUDA_LAUNCHES = 0
-    ar_stack.LAUNCHES_BY_PACK.clear()
-    enc_stack.LAUNCHES_BY_PACK.clear()
+    """Count every kernel's launches from here (``since_zero``)."""
+    global _ZERO
+    _ZERO = launches()
+
+
+def since_zero() -> dict:
+    """Each key of the launch counter since the last zero_launches(), its
+    kernel under SHORT's name: "ar", "ar/int8", "ar/folded", "sort/cuda"."""
+    out = {}
+    for key, n in launches().items():
+        kernel, _, part = key.partition("/")
+        out["/".join(filter(None, (SHORT.get(kernel, kernel), part)))] = n - _ZERO.get(key, 0)
+    return out
 
 
 def launch_counts() -> dict:
-    """The decode-path kernels' launch counts."""
-    return {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES, "flash": attention.LAUNCHES}
+    """The decode-path kernels' launches since the last zero_launches()."""
+    n = since_zero()
+    return {k: n[k] for k in ("ar", "encoder", "flash")}
 
 
 def phase_build() -> None:
     """All six libraries at once: nvcc runs in a subprocess each."""
     t0 = time.perf_counter()
-    mods = (rasterizer, ar_stack, enc_stack, gsplat, attention, sort)
-    with ThreadPoolExecutor(len(mods)) as pool:
-        seconds = list(pool.map(lambda m: m.build(), mods))
-    for mod, sec in zip(mods, seconds):
-        print(f"[build] {os.path.relpath(mod.SOURCE, ROOT)}: {sec:.2f} s")
-        for line in getattr(mod, "BUILD_REPORT", "").splitlines()[:16]:
+    libs = kernel_libraries()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        seconds = list(pool.map(lambda lib: lib.load(), libs))
+    for lib, sec in zip(libs, seconds):
+        print(f"[build] {os.path.relpath(lib.source, ROOT)}: {sec:.2f} s")
+        for line in lib.report.splitlines()[:16]:
             print(f"[build]   {line.strip()}")
-    print(f"[build] all six in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all {len(libs)} in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
@@ -628,11 +643,12 @@ def phase_kernel(flame_data: dict, dev: torch.device) -> dict:
     zbuf = torch.empty((IMAGE, IMAGE), device=dev)
     fid = torch.empty((IMAGE, IMAGE), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    setup_only_ms = cuda_ms(lambda: rasterizer._LIB.artalk_rasterize_setup(
+    lib = rasterizer.LIB.get()
+    setup_only_ms = cuda_ms(lambda: lib.artalk_rasterize_setup(
         screens[0].data_ptr(), faces.data_ptr(), faces.element_size(), screens[0].shape[0],
         faces.shape[0], IMAGE, IMAGE, planes.data_ptr(), boxes.data_ptr(), chunks.data_ptr(),
         stream), 50)
-    kernel_only_ms = cuda_ms(lambda: rasterizer._LIB.artalk_rasterize_tiles(
+    kernel_only_ms = cuda_ms(lambda: lib.artalk_rasterize_tiles(
         planes.data_ptr(), boxes.data_ptr(), chunks.data_ptr(), chunks.shape[0], IMAGE, IMAGE,
         zbuf.data_ptr(), fid.data_ptr(), stream), 50)
     # (pixel, face) pairs evaluated a frame: every face of every chunk whose
@@ -751,13 +767,14 @@ def render_mesh(engine: ARTAvatarInferEngine, audio: np.ndarray, motions: np.nda
     t0 = time.perf_counter()
     out_path = engine.rendering(audio, motions, shape_id="mesh", save_name=save_name)
     ms_frame = (time.perf_counter() - t0) * 1e3 / len(motions)
-    launches, n_frames = rasterizer.LAUNCHES, rendered_frames(out_path)
+    launches, n_frames = since_zero()["rasterize"], rendered_frames(out_path)
     if n_frames not in (None, 250) or launches < 250:
         raise AssertionError(f"[{save_name}] rendered {n_frames} frames with {launches} "
                              "rasterizer launches, want 250 and >= 250")
-    if any(launch_counts().values()) or gsplat.LAUNCHES or sort.LAUNCHES:
+    n = since_zero()
+    if any(launch_counts().values()) or n["gsplat"] or n["sort"]:
         raise AssertionError(f"[{save_name}] the mesh render launched {launch_counts()}, "
-                             f"{gsplat.LAUNCHES} splats, {sort.LAUNCHES} sorts")
+                             f"{n['gsplat']} splats, {n['sort']} sorts")
     return out_path, n_frames, launches, ms_frame
 
 
@@ -1104,16 +1121,16 @@ def phase_ar_serving(model, pack: dict) -> dict:
         for level in range(len(model.patch_nums)):
             x, ada, kc, vc, start = ar_inputs_on_card(model, b, level, seed=500 + level)
             args = dict(start=start, num_heads=model.num_heads)
-            folded = ar_stack.FOLDED
+            folded = since_zero()["ar/folded"]
             got = ar_stack.ar_block_stack(x, ada, pack, kc, vc, **args)
-            r["folded"] += ar_stack.FOLDED - folded
+            r["folded"] += since_zero()["ar/folded"] - folded
             want = ar_stack.ar_block_stack_plain(x, ada, pack, kc, vc, **args)
             r["feats"] = max(r["feats"], (got[0] - want[0]).abs().max().item())
             r["kv_ulps"] = max(r["kv_ulps"], *(bf16_ulps_of_max(g, w)
                                                for g, w in zip(got[1:], want[1:])))
             del want
             r["rows"] = max(r["rows"], ar_rows_vs_alone(pack, args, x, ada, kc, vc, got))
-            if ar_stack.FOLDED > folded:
+            if since_zero()["ar/folded"] > folded:
                 bad = planted_fold_fault(lambda: ar_stack.ar_block_stack(x, ada, pack, kc, vc,
                                                                          **args))
                 r["fault_rows"] = max(r["fault_rows"],
@@ -1146,9 +1163,9 @@ def phase_encoder_serving(model, pack: dict) -> dict:
     t = model.audio_encoder.num_output_frames(model.window_samples)
     x = torch.randn((b, t, model.cfg.wav2vec.hidden_size), generator=g, device=dev) * 0.5
     tol = ENCODER_TOL["int8"]
-    folded = enc_stack.FOLDED
+    folded = since_zero()["encoder/folded"]
     got = enc_stack.encoder_block_stack(x, pack, num_heads=heads)
-    folded = enc_stack.FOLDED - folded
+    folded = since_zero()["encoder/folded"] - folded
     want = enc_stack.encoder_block_stack_plain(x, pack, num_heads=heads)
     of_bound = ((got - want).abs() / (tol + tol * want.abs())).max().item()
     err = (got - want).abs().max().item()
@@ -1322,7 +1339,7 @@ def phase_pool(engine: ARTAvatarInferEngine) -> dict:
     t0 = time.perf_counter()
     got_a, got_b = pool_scenario(pool, a, b)
     ms_tick = (time.perf_counter() - t0) * 1e3 / 4
-    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    launches = {k: since_zero()[k] for k in ("ar", "encoder")}
 
     alone = StreamPool(engine.model, max_sessions=4)
     sa = alone.open_session()
@@ -1431,7 +1448,7 @@ def server_ticks(server, base: str, engine: ARTAvatarInferEngine, sids: tuple) -
             ms.append((time.perf_counter() - t0) * 1e3)
     finally:
         del server.pool.step
-    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    launches = {k: since_zero()[k] for k in ("ar", "encoder")}
     if steps != [sorted(chunks) for chunks in ticks]:
         raise AssertionError(f"[server] pool steps {steps}: concurrent chunks must share one")
     if launches != {"ar": len(ticks) * levels, "encoder": len(ticks)}:
@@ -1506,7 +1523,7 @@ def server_offline(base: str, engine: ARTAvatarInferEngine, audio: np.ndarray) -
     status, headers, video = http_raw(f"{base}/v1/video?shape_id=mesh", "POST",
                                       audio.tobytes())
     ms_video = (time.perf_counter() - t0) * 1e3
-    raster = rasterizer.LAUNCHES
+    raster = since_zero()["rasterize"]
     path = headers.get("X-Video-Path", "")
     with open(path, "rb") as f:
         same = f.read() == video
@@ -1726,8 +1743,9 @@ def phase_times(model, ar_packs: dict, enc_packs: dict) -> dict:
 
 
 def engine_counters() -> str:
-    return "; ".join(f"{name}: launches by engine {dict(m.LAUNCHES_BY_ENGINE)}, products folded "
-                     f"{m.FOLDED}" for name, m in (("ar", ar_stack), ("encoder", enc_stack)))
+    """The block stacks' launches by pack and their folded products so far."""
+    return ", ".join(f"{k} {n}" for k, n in launches().items()
+                     if k.startswith(("ar_block_stack/", "encoder_block_stack/")))
 
 
 def phase_serving_times(model, ar_pack: dict, enc_pack: dict) -> dict:
@@ -1803,9 +1821,9 @@ def phase_gaga(mode: str, dev: torch.device, audio: np.ndarray, motions: np.ndar
     out_path = engine.rendering(audio, own, shape_id="synthetic_0",
                                 save_name=f"chip_smoke_gaga_{mode}")
     t_path = time.perf_counter() - t0
-    launches = {"gsplat": gsplat.LAUNCHES, "sort": sort.LAUNCHES,
-                "sort CUDA launches": sort.CUDA_LAUNCHES, "rasterize": rasterizer.LAUNCHES, "ar": ar_stack.LAUNCHES,
-                "encoder": enc_stack.LAUNCHES}
+    c = since_zero()
+    launches = {"gsplat": c["gsplat"], "sort": c["sort"], "sort CUDA launches": c["sort/cuda"],
+                "rasterize": c["rasterize"], "ar": c["ar"], "encoder": c["encoder"]}
     n, size = len(motions), CAM_PARAMS["size"]
     n_frames = rendered_frames(out_path)
     if n_frames not in (None, len(own)) or len(own) != n:
@@ -2206,10 +2224,10 @@ def phase_hubert(dev: torch.device, audio: np.ndarray) -> dict:
         zero_launches()
         got = flash(x, frame_num)
         torch.cuda.synchronize()
-        launches = attention.LAUNCHES
+        launches = since_zero()["flash"]
         want = plain(x, frame_num)
         torch.cuda.synchronize()
-        plain_launches = attention.LAUNCHES - launches
+        plain_launches = since_zero()["flash"] - launches
         frames = frame_num or cfg.num_output_frames(64000)
         diff = (got - want).abs().max().item()
         print(f"[hubert] frame_num {frame_num}: out {tuple(got.shape)}, flash launches "
@@ -2306,7 +2324,7 @@ def phase_flash_times(dev: torch.device, exact_ms: float) -> dict:
     sweep, beside the plain version, SDPA and the bound. Returns the
     kernels-line fields of the wav2vec site per dtype."""
     out = {}
-    fn = attention._FN
+    fn = attention.LIB.get().artalk_flash_attention
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         sites = [("wav2vec", 16, 199), ("hubert", 12, 199)] + [(f"sweep {n}", 16, n)
                                                                 for n in FLASH_SWEEP]
@@ -2391,9 +2409,10 @@ def phase_sort_kernel(dev: torch.device, scene_keys: dict) -> int:
     worst = 0
     for name, keys in cases.items():
         n = keys.shape[0]
-        before, before_cuda = sort.LAUNCHES, sort.CUDA_LAUNCHES
+        before = since_zero()
         got = sort.sort_keys(keys)
-        launched, cuda_launched = sort.LAUNCHES - before, sort.CUDA_LAUNCHES - before_cuda
+        after = since_zero()
+        launched, cuda_launched = (after[k] - before[k] for k in ("sort", "sort/cuda"))
         wants = {"sort_keys_plain": sort.sort_keys_plain(keys),
                  "torch.sort": torch.sort(keys).values}
         torch.cuda.synchronize()
@@ -2437,7 +2456,7 @@ def phase_debug_renderers(dev: torch.device, flame_data: dict, motions: np.ndarr
     img = PointRenderer(image_size=IMAGE, device=dev)(
         verts, d=POINT_DIST, generator=torch.Generator().manual_seed(21))
     torch.cuda.synchronize()
-    point_launches = {"sort": sort.LAUNCHES, "gsplat": gsplat.LAUNCHES}
+    point_launches = {k: since_zero()[k] for k in ("sort", "gsplat")}
     want = PointRenderer(image_size=IMAGE, device=cpu)(
         verts.cpu(), d=POINT_DIST, generator=torch.Generator().manual_seed(21))
     point_err = (img.cpu() - want).abs().max().item()
@@ -2465,7 +2484,7 @@ def phase_debug_renderers(dev: torch.device, flame_data: dict, motions: np.ndarr
     renderer = TextureRenderer(tuv, flame_mask=mask, device=dev)
     images, masks, face = renderer(verts, tex, lights, **args)
     torch.cuda.synchronize()
-    raster_launches = rasterizer.LAUNCHES
+    raster_launches = since_zero()["rasterize"]
     want = TextureRenderer(tuv, flame_mask=mask, device=cpu)(verts.cpu(), tex, lights, **args)
     faces = renderer.faces.cpu()
     sub = torch.where(renderer.flame_mask.cpu()[:, None], faces, faces[:, :1])
@@ -2530,15 +2549,15 @@ def phase_sort_times(dev: torch.device, avatar_keys: torch.Tensor) -> dict:
     for tag, keys in (("avatar frame", avatar_keys), ("2^21", full_range_keys(1 << 21, 230, dev))):
         n = keys.shape[0]
         result = torch.empty(n, dtype=torch.int32, device=dev)
-        work = torch.empty(n + sort._LIB.artalk_sort_meta_words(n), dtype=torch.int32,
-                           device=dev)
+        lib = sort.LIB.get()
+        work = torch.empty(n + lib.artalk_sort_meta_words(n), dtype=torch.int32, device=dev)
         launched = ctypes.c_int(0)
-        alone = cuda_ms(lambda: sort._LIB.artalk_sort_keys(
+        alone = cuda_ms(lambda: lib.artalk_sort_keys(
             keys.data_ptr(), n, result.data_ptr(), work.data_ptr(), work[n:].data_ptr(), stream,
             ctypes.byref(launched)), 20)
-        before = sort.CUDA_LAUNCHES
+        before = since_zero()["sort/cuda"]
         sort.sort_keys(keys)
-        cuda_launches = sort.CUDA_LAUNCHES - before
+        cuda_launches = since_zero()["sort/cuda"] - before
         wrapper = cuda_ms(lambda: sort.sort_keys(keys), 20)
         plain = cuda_ms(lambda: sort.sort_keys_plain(keys), 3)
         library = cuda_ms(lambda: torch.sort(keys), 20)
@@ -2768,6 +2787,9 @@ def phase_train_kernel(model, dev: torch.device) -> dict:
     exact step's within the first-order bound of ENCODER_TOL['f32'] (sum
     over the condition of |d loss / d cond| times the area-resized atol +
     rtol |features|, times FUSED_LOSS_MARGIN), the bf16 step's loss finite.
+    Each fused step runs on a copy of ``model`` built as training/train.py
+    builds its model (``BitwiseARModel(cfg)``, no held packs), so the step
+    packs the encoder's weights inline, as the trainer's steps do.
     Returns per pack the launches and the two max abs errors."""
     cfg = model.cfg
     ds = train.synthetic_dataset(cfg)
@@ -2798,18 +2820,18 @@ def phase_train_kernel(model, dev: torch.device) -> dict:
             return y
 
         tol = ENCODER_TOL[tag]
-        model.cfg = dataclasses.replace(cfg, **change)
-        try:
-            zero_launches()
-            with replaced(wav2vec_mod, "encoder_block_stack", record):
-                got = one_ar_step(model, b, dev)
-            launches = launch_counts()
-            with torch.no_grad(), no_tf32():
-                fused = model.audio_condition(b["audio"])
-                model.cfg = dataclasses.replace(cfg, **{**change, "fused_ar": False})
-                unfused = model.audio_condition(b["audio"])
-        finally:
-            model.cfg = cfg
+        trainee = BitwiseARModel(dataclasses.replace(cfg, **change))
+        trainee.load_state_dict(model.state_dict())
+        trainee = trainee.to(dev)
+        zero_launches()
+        with replaced(wav2vec_mod, "encoder_block_stack", record):
+            got = one_ar_step(trainee, b, dev)
+        launches = launch_counts()
+        with torch.no_grad(), no_tf32():
+            fused = trainee.audio_condition(b["audio"])
+            trainee.set_precision(dataclasses.replace(cfg, **{**change, "fused_ar": False}))
+            unfused = trainee.audio_condition(b["audio"])
+        del trainee
         if len(calls) != 1:
             raise AssertionError(f"[train kernel] {tag}: {len(calls)} encoder-stack calls")
         x, pack, kw, y = calls[0]
@@ -2973,13 +2995,12 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
             bits = window0_bits(model, audio)
             exact_launches = launch_counts()
             add_launches(counted)
-            model.cfg = bench.with_env(MODES["int8"], lambda: engine_mod._resolve_ar_precision(cfg))
-            engine_mod.build_fused_packs(model)
+            model.set_precision(bench.with_env(MODES["int8"], lambda: tcfg.precision_from_env(cfg)))
             zero_launches()
             bits8 = window0_bits(model, audio)
             int8_launches = launch_counts()
             add_launches(counted)
-        model.cfg, model.fused_pack, model.fused_audio_pack = cfg, None, None
+        model.set_precision(cfg)
         sharded, sharded_step_ms = timed_ar_step(model, b, dev, mesh)
         rel = {k: abs(sharded[k] - plain[k]) / abs(plain[k]) for k in TRAIN_CPU_RTOL}
         del model
@@ -3002,7 +3023,7 @@ def phase_parallel(dev: torch.device, flame_data: dict, audio: np.ndarray,
             frames = render_frames_dp(renderer, verts, mesh)
             torch.cuda.synchronize(dev)
             render_ms = (time.perf_counter() - t0) * 1e3 / len(motions)
-            raster = rasterizer.LAUNCHES
+            raster = since_zero()["rasterize"]
             add_launches(counted)
             render_equal = torch.equal(frames, want)
         del want, frames
@@ -3045,9 +3066,7 @@ def phase_bench() -> dict:
     t0 = time.perf_counter()
     out = bench.run(bench.KNOWN_SECTIONS, "cuda", repeats=BENCH_REPEATS)
     seconds = time.perf_counter() - t0
-    launches = {"rasterize": rasterizer.LAUNCHES, "ar": ar_stack.LAUNCHES,
-                "encoder": enc_stack.LAUNCHES, "gsplat": gsplat.LAUNCHES, "sort": sort.LAUNCHES,
-                "flash": attention.LAUNCHES}
+    launches = tool_launches()
     print(f"[bench] {json.dumps(out)}")
     print(f"[bench] every section, {BENCH_REPEATS} repeats: {seconds:.1f} s; launches {launches}")
     keys = [k for name in bench.KNOWN_SECTIONS for k in bench.SECTION_KEYS[name]]
@@ -3189,7 +3208,7 @@ def phase_pool_wide(engine: ARTAvatarInferEngine) -> dict:
     sids = range(POOL_WIDE)
     zero_launches()
     runs = {"stream": pool_ticks(model, audio, 2)}
-    launches = {"ar": ar_stack.LAUNCHES, "encoder": enc_stack.LAUNCHES}
+    launches = {k: since_zero()[k] for k in ("ar", "encoder")}
     refs = {"stream": [stream_windows(engine, audio[sid]) for sid in sids]}
     if int8:
         runs["alone"] = runs["stream"]
@@ -3317,12 +3336,9 @@ def wide_kernel_rows(model) -> dict:
 
 
 def tool_launches() -> dict:
-    """Every kernel's launches; the block stacks' also by pack ("ar/int8")."""
-    return {"rasterize": rasterizer.LAUNCHES, "ar": ar_stack.LAUNCHES,
-            "encoder": enc_stack.LAUNCHES, "gsplat": gsplat.LAUNCHES, "sort": sort.LAUNCHES,
-            "flash": attention.LAUNCHES,
-            **{f"ar/{p}": ar_stack.LAUNCHES_BY_PACK.get(p, 0) for p in PACKS},
-            **{f"encoder/{p}": enc_stack.LAUNCHES_BY_PACK.get(p, 0) for p in PACKS}}
+    """Every kernel's launches since the last zero_launches(); the block
+    stacks' also by pack ("ar/int8")."""
+    return {k: n for k, n in since_zero().items() if k.partition("/")[2] in ("", *PACKS)}
 
 
 def add_launches(total: dict) -> dict:
@@ -3505,14 +3521,12 @@ def phase_checkpoint(dev: torch.device, audio: np.ndarray, exact_bits: np.ndarra
         bits = window0_bits(restored, audio)
         exact_launches = launch_counts()
         add_launches(counted)
-        restored.cfg = bench.with_env(MODES["int8"],
-                                      lambda: engine_mod._resolve_ar_precision(cfg))
-        engine_mod.build_fused_packs(restored)
+        restored.set_precision(bench.with_env(MODES["int8"], lambda: tcfg.precision_from_env(cfg)))
         zero_launches()
         bits8 = window0_bits(restored, audio)
         int8_launches = launch_counts()
         add_launches(counted)
-    restored.cfg, restored.fused_pack, restored.fused_audio_pack = cfg, None, None
+    restored.set_precision(cfg)
 
     sharded_dir = os.path.join(out_dir, "sharded")
     info = initialize_multihost(coordinator_address=f"127.0.0.1:{free_port()}",
@@ -3548,7 +3562,7 @@ def phase_checkpoint(dev: torch.device, audio: np.ndarray, exact_bits: np.ndarra
     zero_launches()
     with torch.no_grad():
         rgb = torch.clamp(engine.mesh_renderer(verts), 0.0, 1.0)
-        raster = rasterizer.LAUNCHES
+        raster = since_zero()["rasterize"]
         add_launches(counted)
         planes = rgb_to_yuv420p(rgb, channel_axis=-1).cpu().numpy()
         rgb8 = torch.floor(torch.clamp(rgb * 255.0, 0.0, 255.0)).to(torch.uint8).cpu().numpy()

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from artalk_tpu.ops.attention import flash_attention as jax_flash
 
 from artalk_tpu_torch.ops import attention as tatt
+from artalk_tpu_torch.ops._nvcc import launches
 
 from test_torch_params import to_np
 from test_torch_params import torch_threads  # noqa: F401 (autouse)
@@ -117,9 +118,9 @@ def test_plain_version_is_the_cpu_route(rng):
                                                                     hd=32))
     bias = torch.zeros((1, 1, 40, 90))
     bias[..., 5, :] = float("-inf")
-    before = tatt.LAUNCHES
+    before = launches()
     got = tatt.flash_attention(q, k, v, bias, scale=0.3)
-    assert tatt.LAUNCHES == before
+    assert launches() == before
     assert torch.equal(got, tatt.flash_attention_plain(q, k, v, bias, scale=0.3))
     got.square().sum().backward()
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))

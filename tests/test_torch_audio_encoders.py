@@ -45,6 +45,7 @@ from artalk_tpu_torch.models.hubert import HubertEncoder
 from artalk_tpu_torch.models.mimi import MimiEncoder, resample_16k_to_24k
 from artalk_tpu_torch.models.wav2vec import Wav2VecEncoder
 from artalk_tpu_torch.ops import attention as tatt
+from artalk_tpu_torch.ops._nvcc import launches
 from artalk_tpu_torch.utils.params import SEP, params_from_flat
 
 from test_ar_model import CFG as AR_CFG
@@ -121,9 +122,9 @@ def test_flash_wav2vec_matches_jax(jax_flash_interpret, rng, cfg):
     tenc = with_jax_params(Wav2VecEncoder(_port_cfg(tcfg.Wav2VecConfig, cfg)), params)
     audio = (rng.standard_normal((2, 2560)) * 0.1).astype(np.float32)
     want = np.asarray(jax.jit(jenc.__call__)(params, jnp.asarray(audio)))
-    before = tatt.LAUNCHES
+    before = launches()
     got = to_np(tenc(torch.from_numpy(audio)))
-    assert tatt.LAUNCHES == before
+    assert launches() == before
     assert got.shape == want.shape == (2, cfg.num_output_frames(2560), cfg.hidden_size)
     np.testing.assert_allclose(got, want, atol=1e-5)
 

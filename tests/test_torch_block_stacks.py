@@ -30,9 +30,11 @@ from artalk_tpu.ops.encoder_block_stack import encoder_block_stack as jax_enc_st
 from artalk_tpu.ops.encoder_block_stack import pack_encoder_weights as jax_enc_pack
 
 from artalk_tpu_torch import config as tcfg
+from artalk_tpu_torch.models.ar_model import kernel_takes, pack_type
 from artalk_tpu_torch.models.wav2vec import Wav2VecEncoder
 from artalk_tpu_torch.ops import ar_block_stack as tar
 from artalk_tpu_torch.ops import encoder_block_stack as tenc
+from artalk_tpu_torch.ops._nvcc import launches
 
 from test_ar_fused import CFG as AR_CFG
 from test_encoder_fused import SMALL as ENC_CFG
@@ -120,13 +122,10 @@ def test_ar_stack_matches_pallas(ar_models, mode, batch):
         want = jax_ar_stack(jnp.asarray(x), jnp.asarray(ada), jpack["wtiles"], jpack["biases"],
                             *jcache, jpack.get("scales"), start=start,
                             num_heads=jm.num_heads, interpret=True)
-        before, by_pack = tar.LAUNCHES, dict(tar.LAUNCHES_BY_PACK)
-        by_engine, folded = dict(tar.LAUNCHES_BY_ENGINE), tar.FOLDED
+        before = launches()
         got = tar.ar_block_stack(torch.from_numpy(x), torch.from_numpy(ada), tpack, kc, vc,
                                  start=start, num_heads=tm.num_heads)
-        assert tar.LAUNCHES == before  # CPU tensors take the plain version
-        assert tar.LAUNCHES_BY_PACK == by_pack
-        assert tar.LAUNCHES_BY_ENGINE == by_engine and tar.FOLDED == folded
+        assert launches() == before  # CPU tensors take the plain version
         assert got[1].dtype == got[2].dtype == cache_dt
         feats, k_new, v_new = (to_np(t.float()) for t in got)
         want = [np.asarray(w).astype(np.float32) for w in want]
@@ -152,24 +151,22 @@ def test_encoder_stack_matches_pallas(encoders, mode, tol):
     want = np.asarray(jax_enc_stack(jnp.asarray(x), jpack["wtiles"], jpack["biases"],
                                     jpack.get("scales"), num_heads=ENC_CFG.num_attention_heads,
                                     eps=ENC_CFG.layer_norm_eps, interpret=True))
-    before, by_pack = tenc.LAUNCHES, dict(tenc.LAUNCHES_BY_PACK)
-    by_engine, folded = dict(tenc.LAUNCHES_BY_ENGINE), tenc.FOLDED
+    before = launches()
     got = to_np(tenc.encoder_block_stack(torch.from_numpy(x), tpack,
                                          num_heads=ENC_CFG.num_attention_heads,
                                          eps=ENC_CFG.layer_norm_eps))
-    assert tenc.LAUNCHES == before
-    assert tenc.LAUNCHES_BY_PACK == by_pack
-    assert tenc.LAUNCHES_BY_ENGINE == by_engine and tenc.FOLDED == folded
+    assert launches() == before
     np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 def test_encoder_stack_windows_independent(encoders, mode):
     """Three windows in one call give each window's single-window result
-    exactly."""
+    exactly; the model routes such batches of these packs to the kernel."""
     _, _, tmod = encoders
     tpack = tenc.pack_encoder_weights(tmod.encoder.layers, dtype=DTYPES[mode][1])
-    assert tenc.pack_batched_ok(tpack)
+    cfg = tcfg.ModelConfig(fused_ar=True, bf16_audio=mode == "bf16", int8_ar=mode == "int8")
+    assert pack_type(cfg, "encoder") == tpack["wqkv"].dtype and kernel_takes(cfg, "encoder", 3)
     x = torch.from_numpy((np.random.default_rng(12).standard_normal(
         (3, 9, ENC_CFG.hidden_size)) * 0.5).astype(np.float32))
     heads = ENC_CFG.num_attention_heads

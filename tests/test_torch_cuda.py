@@ -54,8 +54,14 @@ from artalk_tpu_torch.ops import encoder_block_stack as teb
 from artalk_tpu_torch.ops import gsplat as tgs
 from artalk_tpu_torch.ops import rasterizer as tr
 from artalk_tpu_torch.ops import sort as tsort
+from artalk_tpu_torch.ops._nvcc import launches
 
 PACK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def _added(before: dict) -> dict:
+    """The launch counter's increase since ``before`` (``launches()``), by key."""
+    return {k: n - before[k] for k, n in launches().items()}
 
 
 def _scenes():
@@ -114,14 +120,11 @@ def test_ar_block_stack_matches_plain(cuda, mode):
     cache_dtype = torch.float32 if mode == "f32" else torch.bfloat16
     for pn, start in ((1, 40), (5, 41), (25, 46), (50, 46)):
         args = [t.to(cuda) for t in _ar_inputs(3, pn, start, cache_dtype=cache_dtype)]
-        before, by_pack = tab.LAUNCHES, dict(tab.LAUNCHES_BY_PACK)
-        by_engine = dict(tab.LAUNCHES_BY_ENGINE)
+        before = launches()
         got = tab.ar_block_stack(args[0], args[1], pack, args[2], args[3], start=start,
                                  num_heads=4)
-        assert tab.LAUNCHES == before + 1
-        assert tab.LAUNCHES_BY_PACK[mode] == by_pack.get(mode, 0) + 1
-        engine = "mma_f32" if mode == "f32" else "wgmma"
-        assert tab.LAUNCHES_BY_ENGINE[engine] == by_engine.get(engine, 0) + 1
+        added = _added(before)
+        assert added["ar_block_stack"] == added[f"ar_block_stack/{mode}"] == 1
         want = tab.ar_block_stack_plain(args[0], args[1], pack, args[2], args[3], start=start,
                                         num_heads=4)
         torch.cuda.synchronize()
@@ -168,16 +171,17 @@ def test_ar_rows_equal_alone(cuda, mode):
 def test_ar_folded_rows_equal_alone(cuda, mode):
     """At B = 96 and pn 100 (9,600 rows: 75 row tiles of 128 by 2 of 128
     columns fill the 132 SMs) the projection's and fc2's splits are added
-    inside the CTA: the launch counts as the wgmma engine's with 2 folded
-    products a block, and each sampled row equals the same row run alone
+    inside the CTA: the launch counts under its pack with 2 folded products
+    a block, and each sampled row equals the same row run alone
     (its splits added by the row pass) bit for bit."""
     pack = tab.pack_block_weights(_blocks().to(cuda), 4, dtype=PACK_DTYPES[mode])
     args = [t.to(cuda) for t in _ar_inputs(96, 100, 60, cache_len=160,
                                            cache_dtype=torch.bfloat16)]
-    by_engine, folded = dict(tab.LAUNCHES_BY_ENGINE), tab.FOLDED
+    before = launches()
     got = tab.ar_block_stack(args[0], args[1], pack, args[2], args[3], start=60, num_heads=4)
-    assert tab.LAUNCHES_BY_ENGINE["wgmma"] == by_engine.get("wgmma", 0) + 1
-    assert tab.FOLDED == folded + 2 * 2
+    added = _added(before)
+    assert added[f"ar_block_stack/{mode}"] == 1
+    assert added["ar_block_stack/folded"] == 2 * 2
     for r in (0, 47, 95):
         one = tab.ar_block_stack(args[0][r:r + 1], args[1][:, r:r + 1].contiguous(), pack,
                                  args[2][:, r:r + 1].contiguous(),
@@ -198,9 +202,9 @@ def test_encoder_folded_windows_equal_alone(cuda, mode):
         tnn.linear_init(lin, gen)
     pack = teb.pack_encoder_weights(layers.to(cuda), dtype=PACK_DTYPES[mode])
     x = (torch.randn((48, 199, 256), generator=gen) * 0.5).to(cuda)
-    folded = teb.FOLDED
+    before = launches()
     got = teb.encoder_block_stack(x, pack, num_heads=4)
-    assert teb.FOLDED == folded + 2 * 2
+    assert _added(before)["encoder_block_stack/folded"] == 2 * 2
     for r in (0, 23, 47):
         assert torch.equal(got[r:r + 1], teb.encoder_block_stack(x[r:r + 1], pack, num_heads=4))
 
@@ -217,10 +221,10 @@ def test_encoder_block_stack_matches_plain(cuda, mode, tol):
         norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=gen))
     pack = teb.pack_encoder_weights(layers.to(cuda), dtype=PACK_DTYPES[mode])
     x = (torch.randn((2, 199, 256), generator=gen) * 0.5).to(cuda)
-    before, by_pack = teb.LAUNCHES, dict(teb.LAUNCHES_BY_PACK)
+    before = launches()
     got = teb.encoder_block_stack(x, pack, num_heads=4)
-    assert teb.LAUNCHES == before + 1
-    assert teb.LAUNCHES_BY_PACK[mode] == by_pack.get(mode, 0) + 1
+    added = _added(before)
+    assert added["encoder_block_stack"] == added[f"encoder_block_stack/{mode}"] == 1
     want = teb.encoder_block_stack_plain(x, pack, num_heads=4)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
@@ -267,9 +271,9 @@ def test_block_stacks_reject_bad_inputs(cuda):
 def test_kernel_matches_plain(cuda):
     for verts, faces, h, w in _scenes():
         vs, fs = torch.from_numpy(verts).to(cuda), torch.from_numpy(faces).to(cuda)
-        before = tr.LAUNCHES
+        before = launches()
         zk, fk = tr.rasterize(vs, fs, height=h, width=w)
-        assert tr.LAUNCHES == before + 1
+        assert _added(before)["rasterize"] == 1
         zp, fp = tr.rasterize_plain(vs, fs, height=h, width=w)
         torch.cuda.synchronize()
         assert torch.equal(fk, fp) and torch.equal(zk, zp), (h, w, len(faces))
@@ -340,9 +344,9 @@ def _splat_scenes():
 def test_splat_matches_plain(cuda, size, bf16_colors):
     for scene in _splat_scenes():
         args = [torch.from_numpy(a).to(cuda) for a in scene]
-        before = tgs.LAUNCHES
+        before = launches()
         got = tgs.rasterize_gaussians(*args, size=size, bf16_colors=bf16_colors)
-        assert tgs.LAUNCHES == before + 1
+        assert _added(before)["gsplat"] == 1
         want = tgs.rasterize_gaussians_plain(*args, size=size, bf16_colors=bf16_colors)
         torch.cuda.synchronize()
         assert got.shape == (32, size, size) and got.dtype == torch.float32
@@ -436,9 +440,9 @@ def test_flash_attention_matches_plain(cuda, dtype):
     for q, k, v, bias, scale in _flash_cases():
         q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
         bias = None if bias is None else bias.to(cuda)
-        before = tatt.LAUNCHES
+        before = launches()
         got = tatt.flash_attention(q, k, v, bias, scale=scale)
-        assert tatt.LAUNCHES == before + 1
+        assert _added(before)["flash_attention"] == 1
         want = tatt.flash_attention_plain(q, k, v, bias, scale=scale)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == q.shape
@@ -458,13 +462,13 @@ def test_flash_attention_launches_directly_without_grad(cuda):
     sites = [case for case, _ in zip(_flash_cases(), range(2))]
     for (q, k, v, _, scale), dtype in itertools.product(sites, (torch.float32, torch.bfloat16)):
         q, k, v = (t.to(cuda, dtype).requires_grad_() for t in (q, k, v))
-        before = tatt.LAUNCHES
+        before = launches()
         graph = tatt.flash_attention(q, k, v, scale=scale)
         with torch.no_grad():
             direct = tatt.flash_attention(q, k, v, scale=scale)
         plain = tatt.flash_attention(q.detach(), k.detach(), v.detach(), scale=scale)
         torch.cuda.synchronize()
-        assert tatt.LAUNCHES == before + 3
+        assert _added(before)["flash_attention"] == 3
         assert graph.grad_fn is not None and direct.grad_fn is None and plain.grad_fn is None
         assert torch.equal(graph, direct) and torch.equal(direct, plain)
 
@@ -527,10 +531,11 @@ def test_sort_matches_plain_and_torch_sort(cuda):
               (10_000, torch.full((10_000,), -5, dtype=torch.int32))]
     for n, keys in cases:
         keys, want_launches = keys.to(cuda), 6 if n else 0
-        before, before_cuda = tsort.LAUNCHES, tsort.CUDA_LAUNCHES
+        before = launches()
         got = tsort.sort_keys(keys)
-        assert tsort.LAUNCHES == before + (n > 0)
-        assert tsort.CUDA_LAUNCHES == before_cuda + want_launches, n
+        added = _added(before)
+        assert added["sort"] == (n > 0)
+        assert added["sort/cuda"] == want_launches, n
         want = tsort.sort_keys_plain(keys)
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == (n,)
@@ -572,9 +577,9 @@ def test_sort_rejects_bad_inputs(cuda):
 def test_prepass_sort_matches_torch_sort(cuda, size, monkeypatch):
     for scene in _splat_scenes():
         args = [torch.from_numpy(a).to(cuda) for a in scene]
-        before = tsort.LAUNCHES
+        before = launches()
         _, _, inst, offsets = tgs.prepass(*args, size=size)
-        assert tsort.LAUNCHES == before + (inst.numel() > 0)
+        assert _added(before)["sort"] == (inst.numel() > 0)
         with monkeypatch.context() as m:
             m.setattr(tgs, "sort_keys", lambda k: torch.sort(k).values)
             _, _, want_inst, want_offsets = tgs.prepass(*args, size=size)

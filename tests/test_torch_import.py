@@ -115,7 +115,7 @@ def test_engine_precision_switches_resolve(monkeypatch, env, want):
     engine's _resolve_ar_precision does."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    cfg = tengine._resolve_ar_precision(tcfg.ModelConfig())
+    cfg = tcfg.precision_from_env(tcfg.ModelConfig())
     assert (cfg.bf16_audio, cfg.bf16_ar, cfg.fused_ar, cfg.int8_ar) == want
 
 
@@ -175,23 +175,39 @@ def test_rasterize_gaussians_other_devices_raise():
 @pytest.mark.parametrize("name", ["ar_block_stack", "attention", "encoder_block_stack",
                                   "gsplat", "motion_json", "rasterizer", "sort"])
 def test_kernel_headers_cover_the_includes(name):
-    """A kernel library is named by a hash of its SOURCE and HEADERS only, so
-    HEADERS must list every header the source reaches through #include "...":
-    a missing one would leave a stale library in place after that header
-    changed. Reads the files; needs no nvcc."""
+    """A module's library declaration (``LIB``) names a source that exists.
+    A library is named by a hash of its source and headers only, so the
+    declaration must list every header the source reaches through #include
+    "...": a missing one would leave a stale library in place after that
+    header changed. Reads the files; needs no nvcc."""
     import importlib
     import re
 
-    mod = importlib.import_module(f"artalk_tpu_torch.ops.{name}")
-    reached, todo = set(), [mod.SOURCE]
+    lib = importlib.import_module(f"artalk_tpu_torch.ops.{name}").LIB
+    assert lib.source.is_file() and all(h.is_file() for h in lib.headers)
+    reached, todo = set(), [lib.source]
     while todo:
         for inc in re.findall(r'^\s*#include\s+"([^"]+)"', todo.pop().read_text(), re.M):
-            path = mod.SOURCE.parent / inc
+            path = lib.source.parent / inc
             if path not in reached:
                 reached.add(path)
                 todo.append(path)
-    assert reached <= set(getattr(mod, "HEADERS", ())), sorted(
-        p.name for p in reached - set(getattr(mod, "HEADERS", ())))
+    assert reached <= set(lib.headers), sorted(p.name for p in reached - set(lib.headers))
+
+
+def test_launches_lists_the_six_kernels():
+    """The one launch counter lists every kernel from its declaration on:
+    the six CUDA libraries, the block stacks by pack and their folded
+    products, the sort's CUDA launches."""
+    from artalk_tpu_torch.ops import _nvcc
+
+    counts = _nvcc.launches()
+    kernels = {"rasterize", "ar_block_stack", "encoder_block_stack", "gsplat",
+               "flash_attention", "sort"}
+    assert {k for k in counts if "/" not in k} == kernels
+    assert {lib.kernel for lib in _nvcc.kernel_libraries()} == kernels
+    assert {f"{k}/{p}" for k in ("ar_block_stack", "encoder_block_stack")
+            for p in ("f32", "bf16", "int8", "folded")} | {"sort/cuda"} <= set(counts)
 
 
 def test_build_library_builds_once_across_threads(tmp_path, monkeypatch):

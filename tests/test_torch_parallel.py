@@ -258,12 +258,12 @@ def test_world_of_one_mesh_equals_plain(world_of_one):
             shard_params(model, mesh)
         with torch.no_grad(), implicit_replication():
             for tag, change in (("exact", {}), ("int8", int8)):
-                model.cfg = dataclasses.replace(jobs.SMALL_CFG, **change)
+                model.set_precision(dataclasses.replace(jobs.SMALL_CFG, **change))
                 style = model.encode_style(None)
                 state = model.initial_state(style, batch_size=4)
                 got[sharded, tag] = whole(model.decode_window(
                     model.audio_condition(args[0]), style, state.prev_attn_feat))
-        model.cfg = jobs.SMALL_CFG
+        model.set_precision(jobs.SMALL_CFG)
         opt = ttrainer.make_optimizer(lr=1e-3, warmup_steps=1)
         step = ttrainer.make_ar_train_step(model, opt, mesh=mesh if sharded else None)
         _, got[sharded, "step"] = step(ttrainer.init_state(model, opt), *args)
@@ -406,7 +406,7 @@ def references(job_inputs, tmp_path_factory):
     for tag, change in (("fused", {"fused_ar": True}),
                         ("int8", {"fused_ar": True, "int8_ar": True, "bf16_ar": True,
                                   "bf16_audio": True})):
-        model.cfg = dataclasses.replace(jobs.SMALL_CFG, **change)
+        model.set_precision(dataclasses.replace(jobs.SMALL_CFG, **change))
         with torch.no_grad():
             tstyle = model.encode_style(None)
             tstate = model.initial_state(tstyle, batch_size=2)

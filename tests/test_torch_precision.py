@@ -27,9 +27,9 @@ from artalk_tpu.engine import _resolve_ar_precision as jax_resolve
 from artalk_tpu.models.ar_model import BitwiseARModel as JaxARModel
 from artalk_tpu.serving import StreamPool as JaxStreamPool
 
-from artalk_tpu_torch.engine import _resolve_ar_precision
-from artalk_tpu_torch.ops import ar_block_stack as tar
-from artalk_tpu_torch.ops import encoder_block_stack as tenc
+from artalk_tpu_torch.config import precision_from_env, precision_mode
+from artalk_tpu_torch.models.ar_model import BitwiseARModel
+from artalk_tpu_torch.ops._nvcc import launches
 from artalk_tpu_torch.serving import StreamPool
 from artalk_tpu_torch.utils.params import params_from_flat
 
@@ -58,19 +58,62 @@ def _models(mode):
     return jm, jp, tm
 
 
-@pytest.mark.parametrize("env", [
-    {}, {"ARTALK_AR_FUSED": "1"}, {"ARTALK_AR_PRECISION": "fast"},
-    {"ARTALK_AR_PRECISION": "fast", "ARTALK_AR_FUSED": "1"},
-    {"ARTALK_AR_PRECISION": "int8"}], ids=["exact", "fused", "fast", "fast+fused", "int8"])
-def test_env_resolution_matches_jax(monkeypatch, env):
+# the weight type of both block stacks' packs per precision mode, as the
+# README's precision table gives it (None: the mode runs no block-stack kernel)
+PACK_TYPES = {"exact": None, "fused": torch.float32, "fast": None,
+              "fast+fused": torch.bfloat16, "int8": torch.int8}
+
+
+@pytest.mark.parametrize("mode,env", [
+    ("exact", {}), ("fused", {"ARTALK_AR_FUSED": "1"}), ("fast", {"ARTALK_AR_PRECISION": "fast"}),
+    ("fast+fused", {"ARTALK_AR_PRECISION": "fast", "ARTALK_AR_FUSED": "1"}),
+    ("int8", {"ARTALK_AR_PRECISION": "int8"})], ids=list(PACK_TYPES))
+def test_env_resolution_matches_jax(monkeypatch, mode, env):
+    """The environment's mode resolves as JAX resolves it, and
+    ``set_precision`` builds both packs in the README's weight type, or
+    none; back in the exact mode, it drops them."""
     for k in ("ARTALK_AR_PRECISION", "ARTALK_AR_FUSED"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     want = jax_resolve(CFG)
-    got = _resolve_ar_precision(torch_config(CFG))
+    got = precision_from_env(torch_config(CFG))
     fields = ("bf16_audio", "bf16_ar", "fused_ar", "int8_ar")
     assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
+    assert precision_mode(got) == mode
+    model = BitwiseARModel(torch_config(CFG)).init(torch.Generator().manual_seed(0))
+    model.set_precision(got)
+    assert model.cfg == got
+    assert [None if p is None else p["wqkv"].dtype
+            for p in (model.fused_pack, model.fused_audio_pack)] == [PACK_TYPES[mode]] * 2
+    model.set_precision(torch_config(CFG))
+    assert model.fused_pack is None and model.fused_audio_pack is None
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_kernel_routing_matches_jax(mode, batch):
+    """Which batches each block stack's kernel runs, and with which pack
+    type, as the JAX package routes them: the AR kernel with ``fused_ar``
+    at batch <= 2 for a float32 pack and at any batch else (JAX's
+    ``decode_window``), the encoder kernel with ``fused_ar`` on a
+    stable-LN wav2vec2 at batch 1, or at any batch where JAX's own
+    ``pack_batched_ok`` takes its pack."""
+    from artalk_tpu.ops.encoder_block_stack import pack_batched_ok as jax_batched_ok
+
+    jm, jp, tm = _models(mode)
+    jax_ar = jm.pack_fused_decode(jp)
+    jax_audio = jm.pack_fused_audio(jp)
+    want = {"ar": jm.cfg.fused_ar and (batch <= 2 or jax_ar["wtiles"].dtype != jnp.float32),
+            "encoder": (jm.cfg.fused_ar and jax_audio is not None
+                        and (batch == 1 or jax_batched_ok(jax_audio)))}
+    jax_dtype = {"ar": jax_ar["wtiles"].dtype,
+                 "encoder": None if jax_audio is None else jax_audio["wtiles"].dtype}
+    for stack in ("ar", "encoder"):
+        pack = tm._kernel_pack(stack, batch)
+        assert (pack is not None) == want[stack], (stack, mode, batch)
+        if pack is not None:
+            assert str(pack["wqkv"].dtype) == f"torch.{jax_dtype[stack]}", stack
 
 
 @pytest.mark.parametrize("mode,batch", [
@@ -84,10 +127,10 @@ def test_decode_window_bits_agree_with_jax(mode, batch):
     prev = (rng.standard_normal((batch, jm.prev_len, jm.embed_dim)) * 0.2).astype(np.float32)
     style = jm.encode_style(jp, None)
     want = np.asarray(jm.decode_window(jp, jnp.asarray(cond), style, jnp.asarray(prev)))
-    before = tar.LAUNCHES
+    before = launches()
     got = to_np(tm.decode_window(torch.from_numpy(cond), tm.encode_style(None),
                                  torch.from_numpy(prev)))
-    assert tar.LAUNCHES == before
+    assert launches() == before
     assert got.shape == want.shape
     agree = float((got == want).mean())
     assert agree >= MIN_AGREE[mode], f"{mode} B={batch}: bit agreement {agree}"
@@ -99,15 +142,15 @@ def test_audio_condition_matches_jax(mode, tol):
     audio = (np.random.default_rng(5).standard_normal((1, jm.window_samples)) * 0.1
              ).astype(np.float32)
     want = np.asarray(jm.audio_condition(jp, jnp.asarray(audio)))
-    before = tenc.LAUNCHES
+    before = launches()
     got = to_np(tm.audio_condition(torch.from_numpy(audio)))
-    assert tenc.LAUNCHES == before
+    assert launches() == before
     np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
 
 def test_fused_packs_built_once_by_the_engine(tmp_path, monkeypatch):
     """The engine packs the fused paths' weights at construction, in the
-    mode's dtypes."""
+    mode's dtypes, and a pool on its model keeps them."""
     from artalk_tpu_torch.engine import ARTAvatarInferEngine
 
     from artalk_tpu.utils.assets import save_flame_npz, synthetic_flame
@@ -121,6 +164,9 @@ def test_fused_packs_built_once_by_the_engine(tmp_path, monkeypatch):
     assert eng.cfg.int8_ar and eng.cfg.fused_ar
     assert eng.model.fused_pack["wqkv"].dtype == torch.int8
     assert eng.model.fused_audio_pack["wqkv"].dtype == torch.int8
+    packs = eng.model.fused_pack, eng.model.fused_audio_pack
+    StreamPool(eng.model, max_sessions=2)
+    assert (eng.model.fused_pack, eng.model.fused_audio_pack) == packs
     motions = eng.inference((np.random.default_rng(6).standard_normal(2560) * 0.1
                              ).astype(np.float32))
     assert motions.shape == (4, CFG.vae.motion_dim) and np.isfinite(motions).all()

@@ -495,7 +495,7 @@ def test_overfit_one_clip_learns_decode_path(batch):
         assert decoded.shape == this_bits.shape
         match = float((decoded == this_bits).float().mean())
         assert match >= 0.95, f"free-running decode reproduces only {match:.3f} of codes"
-        model.cfg = dataclasses.replace(model.cfg, bf16_ar=True)
+        model.set_precision(dataclasses.replace(model.cfg, bf16_ar=True))
         agree = float((model.decode_window(audio_cond, style_cond, prefix)
                        == decoded).float().mean())
     assert agree >= 0.97, f"bf16 decode agreement on trained weights: {agree:.3f}"

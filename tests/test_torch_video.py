@@ -78,6 +78,24 @@ def test_npz_container_reads_as_jax(rng, tmp_path, no_codecs, monkeypatch, pix_f
         assert port[1] == ref[1] == 25.0 and port[3] == ref[3] == 16000
 
 
+def test_odd_rgb_frames_fall_back_to_npz_as_jax(rng, tmp_path, no_codecs):
+    """RGB frames of odd height and width, which the Y4M tier refuses (its
+    4:2:0 planes need even sizes), go to the .npz as in JAX, and the port's
+    file reads as JAX's does."""
+    frames = rng.integers(0, 256, (3, 31, 33, 3)).astype(np.uint8)
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    got = tvideo.write_video(frames, str(tmp_path / "port" / "clip.mp4"), 25.0,
+                             pix_fmt="rgb24")
+    want = jvideo.write_video(frames, str(tmp_path / "jax" / "clip.mp4"), 25.0,
+                              pix_fmt="rgb24")
+    assert got.endswith("clip.npz") and want.endswith("clip.npz")
+    port, ref = tvideo.read_video_npz(got), jvideo.read_video_npz(want)
+    np.testing.assert_array_equal(port[0], frames)
+    for g, w in zip(port, ref):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 def test_rgb_y4m_bytes_equal_jax(rng, tmp_path, no_codecs, dtype):
     """``write_video(..., pix_fmt="rgb24")`` through the Y4M tier writes the

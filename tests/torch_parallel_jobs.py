@@ -165,8 +165,7 @@ def job_decode(inputs: dict) -> dict:
         for tag, change in (("exact", {}), ("fused", {"fused_ar": True}),
                             ("int8", {"fused_ar": True, "int8_ar": True, "bf16_ar": True,
                                       "bf16_audio": True})):
-            model.cfg = dataclasses.replace(SMALL_CFG, **change)
-            model.fused_pack = model.fused_audio_pack = None
+            model.set_precision(dataclasses.replace(SMALL_CFG, **change))
             style = model.encode_style(None)
             state = model.initial_state(style, batch_size=audio.shape[0])
             cond = model.audio_condition(audio)
