@@ -29,12 +29,13 @@ metrics registry (``utils/metrics``), training of both model stages
 ``torch.export`` of the window step (``export_model``) and multi-device
 scaling on ``torch.distributed`` (``parallel``: the (dp, tp) device mesh,
 the tensor-parallel sharding rules as DTensor placements, frame-parallel
-rendering, multi-process jobs). Six hand-written CUDA kernels
+rendering, multi-process jobs). Seven hand-written CUDA kernels
 carry them: the z-buffer rasterizer (``csrc/rasterizer.cu``), the AR block
 stack (``csrc/ar_block_stack.cu``), the wav2vec2 encoder stack
 (``csrc/encoder_block_stack.cu``), the 32-channel gaussian splat
-(``csrc/gsplat.cu``), flash attention (``csrc/flash_attention.cu``) and the
-splat prepass's int32 key sort (``csrc/sort.cu``); everything else on the
+(``csrc/gsplat.cu``), flash attention (``csrc/flash_attention.cu``), the
+splat prepass's int32 key sort (``csrc/sort.cu``) and, in the bf16 modes,
+the wav2vec2 conv front (``csrc/conv_frontend.cu``); everything else on the
 paths is plain PyTorch, and host media work (resampling, the Y4M writer) is
 the native C++ runtime of ``runtime/``, built with g++. On the CPU every
 kernel takes its plain version, which the tests (``python -m pytest

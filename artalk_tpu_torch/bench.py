@@ -94,7 +94,7 @@ from .models.flame import FlameModel
 from .models.gagavatar.avatar import CAM_PARAMS, NUM_FLAME_VERTS, GAGAvatar
 from .models.gagavatar.generators import transform_emoca_to_p3d
 from .models.renderer import MeshRenderer
-from .ops import gsplat
+from .ops import conv_frontend, gsplat
 from .ops.ar_block_stack import pack_dtype
 from .ops._nvcc import kernel_libraries
 from .utils import roofline
@@ -184,11 +184,17 @@ def _motion_inputs(model: BitwiseARModel, dev: torch.device):
 
 def decode_kernels(model: BitwiseARModel, windows: int) -> dict:
     """The kernel launches of ``windows`` window steps of ``model`` at batch
-    1, with their work: with ``fused_ar`` one AR launch a level and one
-    encoder launch a window; none otherwise."""
+    1, with their work: in the bf16 modes one conv-front launch a conv of
+    every window; with ``fused_ar`` one AR launch a level and one encoder
+    launch a window."""
     cfg = model.cfg
+    out = {}
+    pack = model.frontend_pack()
+    if pack is not None:
+        front = roofline.conv_frontend_work(cfg.wav2vec, model.window_samples, 1)
+        out["conv_frontend"] = (conv_frontend.launches_per_call(pack) * windows, front * windows)
     if not cfg.fused_ar:
-        return {}
+        return out
     hidden = round(model.embed_dim * cfg.ar.mlp_ratio)
     ar = sum((roofline.ar_level_work(
         model.depth, model.embed_dim, hidden, model.num_heads, pn,
@@ -198,7 +204,7 @@ def decode_kernels(model: BitwiseARModel, windows: int) -> dict:
     enc = roofline.encoder_window_work(
         w2v.num_hidden_layers, w2v.hidden_size, w2v.intermediate_size,
         w2v.num_output_frames(model.window_samples), pack_dtype(model.fused_audio_pack))
-    return {"ar_block_stack": (len(model.patch_nums) * windows, ar * windows),
+    return {**out, "ar_block_stack": (len(model.patch_nums) * windows, ar * windows),
             "encoder_block_stack": (windows, enc * windows)}
 
 

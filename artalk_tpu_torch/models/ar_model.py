@@ -21,8 +21,9 @@ The model owns its precision mode (``config.precision_from_env`` reads it):
 ``set_precision`` sets the configuration's switches and builds, or drops,
 the block stacks' weight packs, and the switches route the decode as the JAX
 model does. ``bf16_audio`` runs the wav2vec2 encoder in bfloat16 (Mimi stays
-float32), ``bf16_ar`` the block walk; ``fused_ar`` runs each level's blocks
-as one launch of the AR block-stack kernel (``ops/ar_block_stack.py``)
+float32; the XLS-R conv front through ``ops/conv_frontend.py`` with the weight
+pack ``frontend_pack`` builds once), ``bf16_ar`` the block walk; ``fused_ar``
+runs each level's blocks as one launch of the AR block-stack kernel (``ops/ar_block_stack.py``)
 against a merged-head cache, and the wav2vec2 stable-LN encoder layers as one
 launch of ``ops/encoder_block_stack.py`` (Mimi and the post-LN layout have no
 fused path), with float32, bfloat16 or (``int8_ar``) int8 weight packs
@@ -58,6 +59,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops import conv_frontend
 from ..ops.ar_block_stack import ar_block_stack, pack_block_weights
 from ..ops.resample1d import resize_area, resize_linear
 from ..utils.metrics import GLOBAL_METRICS
@@ -206,9 +208,11 @@ class BitwiseARModel(nn.Module):
         self.register_buffer("_lvl_idx", torch.cat([
             torch.full((pn,), i, dtype=torch.long) for i, pn in enumerate(self.patch_nums)
         ]), persistent=False)
-        # the fused paths' weight packs, built by set_precision
+        # the fused paths' weight packs, built by set_precision, and the bf16
+        # conv front's (``frontend_pack``)
         self.fused_pack: Optional[dict] = None
         self.fused_audio_pack: Optional[dict] = None
+        self._frontend_pack: Optional[dict] = None
         self.requires_grad_(False)
 
     # ------------------------------------------------------------------ init
@@ -301,13 +305,30 @@ class BitwiseARModel(nn.Module):
     def set_precision(self, cfg: ModelConfig) -> None:
         """Decode in ``cfg``'s precision mode from now on: set ``cfg`` and, with
         ``fused_ar``, build both block stacks' weight packs from the current
-        parameters on their device, or drop them. A call with the mode the
+        parameters on their device, or drop them; likewise the conv front's
+        pack (``frontend_pack``) in the bf16 modes. A call with the mode the
         model holds its packs for keeps them."""
         if cfg == self.cfg and (self.fused_pack is not None) == cfg.fused_ar:
             return
         self.cfg = cfg
         self.fused_pack = self._pack("ar") if cfg.fused_ar else None
         self.fused_audio_pack = self._pack("encoder") if cfg.fused_ar else None
+        self._frontend_pack = None
+        self.frontend_pack()
+
+    def frontend_pack(self) -> Optional[dict]:
+        """The wav2vec2 conv front's bf16 weight pack (``ops/conv_frontend.py``)
+        where ``bf16_audio`` runs it in bfloat16 in the "layer" layout, else
+        None: built by ``set_precision`` with the block stacks' packs, or on
+        first use where the model's mode was set without it (a model built in
+        its mode), and kept."""
+        enc = self.audio_encoder
+        if not (self.cfg.bf16_audio and isinstance(enc, Wav2VecEncoder)
+                and conv_frontend.layout_takes(enc.cfg)):
+            return None
+        if self._frontend_pack is None:
+            self._frontend_pack = enc.pack_frontend()
+        return self._frontend_pack
 
     def _pack(self, stack: str) -> Optional[dict]:
         """``stack``'s weight pack for its block-stack kernel ("ar", "encoder"),
@@ -438,7 +459,8 @@ class BitwiseARModel(nn.Module):
             tensors = {k: t.to(torch.bfloat16) if t.dtype == torch.float32 else t
                        for k, t in tensors.items()}
             feat = torch.func.functional_call(enc, tensors, (audio_chunk.to(torch.bfloat16),),
-                                              {"fused_pack": fused_pack})
+                                              {"fused_pack": fused_pack,
+                                               "frontend_pack": self.frontend_pack()})
         else:
             feat = enc(audio_chunk, fused_pack)
         feat = feat.float()

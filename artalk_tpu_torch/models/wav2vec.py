@@ -15,6 +15,14 @@ encoder layers. Two layouts, as in HF's wav2vec2 family:
   ``norm``); the encoder LayerNorm comes before the stack, and each layer is
   LN(h + attention), then LN(h + FFN).
 
+The conv front (z-norm, feature convs, projection, positional conv and its
+residual) runs under the device-timed span ``wav2vec.frontend``. With
+bfloat16 audio and parameters in the "layer" layout and no input that needs a
+gradient (``frontend_takes``: the bf16 modes of the AR model, which pass the
+pack they built once) its eight convolutions go through the kernels of
+``ops/conv_frontend.py``; elsewhere (float32, the "group" layout, training)
+through ``conv1d`` (cuDNN on the card).
+
 With ``use_flash_attention`` the layer loop's attention runs through the
 flash-attention kernel (``ops/attention.py``) instead of the plain softmax.
 With a ``fused_pack`` (``pack_fused``; stable layout) the layers run as one
@@ -26,13 +34,14 @@ decides which batches go through the kernel (``ar_model.kernel_takes``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import Wav2VecConfig
+from ..ops import conv_frontend as cf
 from ..ops.attention import flash_attention
+from ..ops.conv_frontend import conv1d, pos_conv_embed
 from ..ops.encoder_block_stack import encoder_block_stack, pack_encoder_weights
-from ..parallel.sharding import whole
+from ..utils.metrics import GLOBAL_METRICS
 from . import nn as tnn
 
 
@@ -42,24 +51,6 @@ def normalize_audio(audio: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     n = audio.shape[-1]
     var = (audio - mean).square().sum(dim=-1, keepdim=True) / (n - 1)
     return (audio - mean) / (torch.sqrt(var) + eps)
-
-
-def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-           **kwargs) -> torch.Tensor:
-    """``F.conv1d``; bfloat16 inputs are convolved in float32 and rounded
-    once, then the bias is added in bfloat16, as XLA computes a bf16
-    convolution. (PyTorch's CPU bf16 grouped convolution loses most of its
-    precision, and the plain versions must run on the CPU too.) TF32 is off
-    (``nn.no_tf32``), as in the JAX reference. A tensor-parallel model's
-    operands (replicated by the sharding rules) go in whole: DTensor's
-    convolution rule takes only a sequence sharded with a halo exchange."""
-    x, w = whole(x), whole(w)
-    b = None if b is None else whole(b)
-    with tnn.no_tf32():
-        if x.dtype != torch.bfloat16:
-            return F.conv1d(x, w, b, **kwargs)
-        y = F.conv1d(x.float(), w.float(), **kwargs).to(torch.bfloat16)
-    return y if b is None else y + b[:, None]
 
 
 class _Conv(nn.Module):
@@ -163,14 +154,53 @@ class Wav2VecEncoder(nn.Module):
         return x.transpose(1, 2)
 
     def _pos_conv_embed(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
         p = self.encoder.pos_conv
-        h = conv1d(x.transpose(1, 2), p.w, p.b,
-                     padding=cfg.num_conv_pos_embeddings // 2,
-                     groups=cfg.num_conv_pos_embedding_groups)
-        if cfg.num_conv_pos_embeddings % 2 == 0:  # SamePad: drop trailing step
-            h = h[..., :-1]
-        return tnn.gelu_erf(h.transpose(1, 2))
+        return pos_conv_embed(x, p.w, p.b, self.cfg.num_conv_pos_embedding_groups)
+
+    def _project(self, features: torch.Tensor) -> torch.Tensor:
+        fp = self.feature_projection
+        return fp.proj(fp.norm(features))
+
+    def _embed(self, features: torch.Tensor) -> torch.Tensor:
+        """Feature projection, then + the positional embedding."""
+        x = self._project(features)
+        return x + self._pos_conv_embed(x)
+
+    def pack_frontend(self) -> dict:
+        """The bf16 weight pack of the conv front's kernels
+        (``ops/conv_frontend.py``); pass it to ``forward`` as ``frontend_pack``."""
+        return cf.pack_frontend(self)
+
+    def frontend_takes(self, audio: torch.Tensor) -> bool:
+        """Does ``ops/conv_frontend.conv_frontend`` run this audio's conv front:
+        bfloat16 audio and parameters in the "layer" layout with conv biases
+        (XLS-R's), no input that needs a gradient, and on the card widths the
+        kernels take? Elsewhere (float32, the "group" layout, training) the
+        eager path runs it."""
+        conv0 = self.feature_extractor[0].conv.w
+        if audio.dtype != torch.bfloat16 or conv0.dtype != torch.bfloat16:
+            return False
+        if not cf.layout_takes(self.cfg):
+            return False
+        params = (*self.feature_extractor.parameters(),
+                  *self.feature_projection.parameters(), *self.encoder.pos_conv.parameters())
+        if torch.is_grad_enabled() and (audio.requires_grad
+                                        or any(p.requires_grad for p in params)):
+            return False
+        return audio.device.type == "cpu" or cf.supports(self.cfg)
+
+    def frontend(self, audio: torch.Tensor, frontend_pack: dict | None = None) -> torch.Tensor:
+        """z-norm -> conv stack -> feature projection -> + positional
+        embedding: (B, T_samples) -> (B, frames, d), under the device-timed
+        span ``wav2vec.frontend``. Through the conv front's kernels where
+        ``frontend_takes`` (with ``frontend_pack``, or one packed here), else
+        the eager path."""
+        with GLOBAL_METRICS.span("wav2vec.frontend", device=audio.device):
+            audio = normalize_audio(audio)
+            if self.frontend_takes(audio):
+                pack = frontend_pack if frontend_pack is not None else self.pack_frontend()
+                return cf.conv_frontend(audio, pack, self._project)
+            return self._embed(self.extract_features(audio))
 
     def pack_fused(self, dtype: torch.dtype = torch.float32) -> dict:
         """Weight pack of the encoder layers for the block-stack kernel; pass it
@@ -181,12 +211,14 @@ class Wav2VecEncoder(nn.Module):
         """Feature projection + transformer encoder: pre-LN layers and the
         final LN after them (stable layout), or the encoder LN first and
         post-LN layers (base/HuBERT layout)."""
+        return self.encode_embedded(self._embed(features), fused_pack)
+
+    def encode_embedded(self, x: torch.Tensor, fused_pack: dict | None = None) -> torch.Tensor:
+        """The transformer encoder of the embedded features (after the
+        projection and the positional embedding)."""
         cfg = self.cfg
         num_heads = cfg.num_attention_heads
         stable = cfg.do_stable_layer_norm
-        fp = self.feature_projection
-        x = fp.proj(fp.norm(features))
-        x = x + self._pos_conv_embed(x)
         if not stable:
             x = self.encoder.final_norm(x)
         if fused_pack is not None and stable:
@@ -211,9 +243,10 @@ class Wav2VecEncoder(nn.Module):
                 x = lay.norm2(x + lay.fc2(tnn.gelu_erf(lay.fc1(x, i)), i), i)
         return self.encoder.final_norm(x) if stable else x
 
-    def forward(self, audio: torch.Tensor, fused_pack: dict | None = None) -> torch.Tensor:
+    def forward(self, audio: torch.Tensor, fused_pack: dict | None = None,
+                frontend_pack: dict | None = None) -> torch.Tensor:
         """Full forward: z-norm -> convs -> encoder. (B, T) -> (B, frames, d)."""
-        return self.encode(self.extract_features(normalize_audio(audio)), fused_pack)
+        return self.encode_embedded(self.frontend(audio, frontend_pack), fused_pack)
 
     def num_output_frames(self, num_samples: int) -> int:
         return self.cfg.num_output_frames(num_samples)

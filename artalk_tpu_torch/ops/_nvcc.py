@@ -149,6 +149,6 @@ def launches() -> Dict[str, int]:
 
 
 def kernel_libraries() -> List[Library]:
-    """The declared libraries that hold a kernel: the six CUDA libraries
+    """The declared libraries that hold a kernel: the seven CUDA libraries
     (``ops/__init__.py`` imports their wrappers)."""
     return [lib for lib in _LIBRARIES if lib.kernel is not None]

@@ -8,6 +8,7 @@ sees none of them. Each kernel's work is therefore computed from its shapes
 
 - ``ar_level_work``: one launch of the AR block stack (one scale level, B = 1);
 - ``encoder_window_work``: one launch of the encoder block stack (one window);
+- ``conv_frontend_work``: the wav2vec2 conv front's eight launches;
 - ``flash_work``: one flash-attention call;
 - ``splat_work``: one splat of a frame's instance lists;
 - ``rasterize_work``: one mesh z-buffer frame (``coverage_tests`` counts the
@@ -125,6 +126,26 @@ def encoder_window_work(depth: int, d: int, hidden: int, frames: int,
     weights = depth * (4 * d * d + 2 * d * hidden)
     moved = pack_bytes(depth, d, hidden, dtype, 9 * d + hidden) + 2 * frames * d * 4
     flops = 2 * weights * frames + depth * 2 * 2 * frames * frames * d
+    return Work(flops, moved)
+
+
+def conv_frontend_work(cfg, samples: int, rows: int) -> Work:
+    """The wav2vec2 conv front of ``rows`` windows of ``samples``, as the
+    eight launches of ``ops/conv_frontend.py`` run it in bf16: each launch
+    reads its input once (the audio, a conv's output, the projected features
+    with their residual) and its weights, biases and LayerNorm rows once,
+    and writes its output once; 2 FLOP per weight per output step."""
+    t, moved, flops = samples, 0, 0
+    c_in = 1
+    for c, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        moved += rows * t * c_in * 2
+        t = (t - k) // s + 1
+        flops += 2 * rows * t * c * c_in * k
+        moved += rows * t * c * 2 + (c * c_in * k + 3 * c) * 2
+        c_in = c
+    d, k = cfg.hidden_size, cfg.num_conv_pos_embeddings
+    flops += 2 * rows * t * d * (d // cfg.num_conv_pos_embedding_groups) * k
+    moved += 2 * rows * t * d * 2 + (d * (d // cfg.num_conv_pos_embedding_groups) * k + d) * 2
     return Work(flops, moved)
 
 

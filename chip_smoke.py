@@ -17,7 +17,7 @@ video writer's two pixel formats read back).
 
 Phases (any failure raises and exits non-zero; no phase catches its own):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the six kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
+  2. build the seven kernels from artalk_tpu_torch/csrc/ (one nvcc each, all at
      once) and print the seconds and nvcc's register / shared-memory report
      (up to 16 lines each);
   3. kernel vs plain version on the synthetic FLAME head at 512x512, 4 frames:
@@ -65,8 +65,10 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
   8. full width per mode (ARTALK_AR_FUSED=1, fast, fast + fused, int8), each on
      a fresh engine: inference -> (250, 106) finite, stream equals offline to
      1e-4, 5 AR launches and 1 encoder launch per window in the fused modes
-     and none in fast alone, and the share of window-0 code bits that agree
-     with the exact mode (>= 0.999 float32 fused, >= 0.9 otherwise);
+     and none in fast alone, 8 conv-front launches per window in the bf16
+     modes (fast, fast + fused, int8) and none in the float32 ones (phase 5
+     too), and the share of window-0 code bits that agree with the exact
+     mode (>= 0.999 float32 fused, >= 0.9 otherwise);
   9. StreamPool, int8, capacity 4: two sessions, one joining late, with idle
      ticks; each session's motions equal the same session run alone in a pool
      of the same capacity to 1e-5, and its decoded code bits agree with its
@@ -319,6 +321,18 @@ Phases (any failure raises and exits non-zero; no phase catches its own):
      The kernels line's checkpoint_launches are each kernel's launches (by
      pack) over the two windows, the inference and the render; the phase
      must launch no gsplat, sort or attention kernel.
+ 37. (run after phase 10) the wav2vec2 conv front's kernels
+     (ops/conv_frontend.py) at XLS-R widths in bf16, B = 1 and 140: each of
+     the eight layers fed the plain version's own input within
+     CONV_FRONT_LAYER (shares equal and within 1 ulp, ulps of the largest
+     value), the whole front within CONV_FRONT_REL of its largest value
+     (the eager path's own distance from the plain version printed beside
+     it), 8 launches a call, three rows of B = 140 equal to themselves run
+     alone; then CUDA-event times of the kernels (a call and each launch),
+     the eager path (cuDNN's float32 convolution of the same bf16 values),
+     the plain version and the bound (3.2 TFLOP a 140-window call at 989
+     TFLOP/s, each launch's input and output in bf16 at 3.35 TB/s), and a
+     profile of the B = 140 call.
 
 It imports nothing of JAX. The line before the last is a JSON object with the
 kernels' numbers; the last line is {"ok": true, "device": {...}}.
@@ -370,6 +384,7 @@ from artalk_tpu_torch.models.renderer import MeshRenderer
 from artalk_tpu_torch.models.renderer_extras import PointRenderer, TextureRenderer
 from artalk_tpu_torch.ops import ar_block_stack as ar_stack
 from artalk_tpu_torch.ops import attention
+from artalk_tpu_torch.ops import conv_frontend as conv_front
 from artalk_tpu_torch.ops import encoder_block_stack as enc_stack
 from artalk_tpu_torch.ops import gsplat
 from artalk_tpu_torch.ops import rasterizer
@@ -525,6 +540,15 @@ POOL_WIDE = 32
 # with three sampled rows (the first, the middle, the last) launched alone
 SERVING_AR_BATCHES = (140, 408)
 SERVING_ENCODER_BATCH = 140
+# the conv front's kernels against the plain version (phase 37): each layer
+# fed the plain version's input, and the whole front; batches 1 and the
+# stream cell's 140
+CONV_FRONT_BATCHES = (1, 140)
+# per layer: shares of elements equal and within 1 ulp, and the largest
+# difference in ulps of the layer's largest |value| (tests/test_torch_cuda.py's
+# CONV_LAYER_*); the whole front's largest difference over its largest |value|
+CONV_FRONT_LAYER = {"equal": 0.999, "within_1ulp": 0.9995, "ulps_of_max": 4}
+CONV_FRONT_REL = 0.03
 TOOL_RUNS = (
     ("bench_streampool", ["--sizes", "1,8,32", "--iters", "3"],
      {"ARTALK_AR_PRECISION": "int8", "ARTALK_AR_FUSED": "1"}),
@@ -591,7 +615,7 @@ def launch_counts() -> dict:
 
 
 def phase_build() -> None:
-    """All six libraries at once: nvcc runs in a subprocess each."""
+    """All seven libraries at once: nvcc runs in a subprocess each."""
     t0 = time.perf_counter()
     libs = kernel_libraries()
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -787,6 +811,8 @@ def phase_full(dev: torch.device):
     audio = noise_audio(engine.cfg.sample_rate)
     run = drive(engine, audio, "full")
     check_launches("full", run, {"ar": 0, "encoder": 0, "flash": 0})
+    if run["conv_launches"] != [0, 0]:
+        raise AssertionError(f"[full] exact mode launched the conv front {run['conv_launches']}")
     motions = run["motions"]
     GLOBAL_METRICS.reset()
     trace_dir = os.path.join(ROOT, "render_results", "chip_smoke", "trace")
@@ -1190,6 +1216,140 @@ def phase_encoder_serving(model, pack: dict) -> dict:
             "folded": folded}
 
 
+def bf16_ulp_gaps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| of two bf16 tensors in ulps, elementwise: the distance of
+    their bit patterns in the order of the values (+0 and -0 at 0)."""
+    def ordered(t):
+        u = t.contiguous().view(torch.int16).int() & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def conv_front_encoder(dev: torch.device) -> wav2vec_mod.Wav2VecEncoder:
+    """The production wav2vec2 conv front in bf16 on ``dev`` (one encoder
+    layer: the layers do not take part), seed-0 weights with the conv biases
+    and LayerNorm rows moved off their defaults."""
+    cfg = dataclasses.replace(tcfg.Wav2VecConfig(), num_hidden_layers=1)
+    enc = wav2vec_mod.Wav2VecEncoder(cfg).init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith(("norm.scale", "norm.bias", "conv.b")):
+                p.add_(torch.randn(p.shape, generator=g) * 0.3)
+    return enc.to(dev, torch.bfloat16).requires_grad_(False)
+
+
+def conv_front_audio(b: int, samples: int, dev: torch.device, seed: int) -> torch.Tensor:
+    """z-normed bf16 noise of ``b`` windows, as ``Wav2VecEncoder.frontend``
+    hands the convs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    audio = torch.randn((b, samples), generator=g, device=dev) * 0.1
+    return wav2vec_mod.normalize_audio(audio.to(torch.bfloat16))
+
+
+def phase_conv_front(dev: torch.device) -> dict:
+    """Phase 37: the conv front's kernels (ops/conv_frontend.py) against the
+    plain version at XLS-R widths, each layer fed the plain version's own
+    input, and the whole front; rows of the stream batch against themselves
+    alone; the launches a call makes; then times by CUDA events beside the
+    eager path (cuDNN's float32 convolution of the same bf16 values), the
+    plain version and the bound."""
+    enc = conv_front_encoder(dev)
+    pack = enc.pack_frontend()
+    samples = 64000
+    out = {"layers": {}}
+    with torch.no_grad():
+        for b in CONV_FRONT_BATCHES:
+            a = conv_front_audio(b, samples, dev, seed=370 + b)
+            x = a
+            for i in range(len(pack["stride"]) + 1):
+                if i < len(pack["stride"]):
+                    want = conv_front.conv_layer_plain(x, pack, i)
+                    got = conv_front.conv_layer(x, pack, i)
+                    tag = f"conv{i}"
+                else:
+                    x = enc._project(x)
+                    want = conv_front.pos_conv_residual_plain(x, pack)
+                    got = conv_front.pos_conv_residual(x, pack)
+                    tag = "pos"
+                gaps = bf16_ulp_gaps(got, want)
+                err = (got.float() - want.float()).abs()
+                top = want.float().abs().max().item()
+                row = {"equal": (gaps == 0).float().mean().item(),
+                       "within_1ulp": (gaps <= 1).float().mean().item(),
+                       "max_ulps": gaps.max().item(), "max_abs_err": err.max().item(),
+                       "max_abs": top,
+                       "ulps_of_max": err.max().item() / 2.0 ** (math.floor(math.log2(top)) - 7)}
+                out["layers"][f"{tag}/B{b}"] = row
+                print(f"[conv front] B = {b} {tag} {tuple(got.shape)}: equal {row['equal']:.6f}, "
+                      f"within 1 ulp {row['within_1ulp']:.6f}, max {row['max_ulps']} ulps, "
+                      f"max abs err {row['max_abs_err']:.4g} of max |value| {top:.4g} "
+                      f"({row['ulps_of_max']:.2f} ulps of it)")
+                lim = CONV_FRONT_LAYER
+                if row["equal"] < lim["equal"] or row["within_1ulp"] < lim["within_1ulp"] or \
+                        row["ulps_of_max"] > lim["ulps_of_max"]:
+                    raise AssertionError(f"[conv front] B = {b} {tag} off the plain version: {row}")
+                x = want
+            before = launches()["conv_frontend"]
+            got = conv_front.conv_frontend(a, pack, enc._project)
+            n_launch = launches()["conv_frontend"] - before
+            want = conv_front.conv_frontend_plain(a, pack, enc._project)
+            eager = enc._embed(enc.extract_features(a))
+            top = want.float().abs().max()
+            err = ((got.float() - want.float()).abs().max() / top).item()
+            eager_err = ((eager.float() - want.float()).abs().max() / top).item()
+            same = (bf16_ulp_gaps(want, eager) == 0).float().mean().item()
+            out[f"front/B{b}"] = {"rel_err": err, "launches": n_launch, "eager_rel_err": eager_err}
+            print(f"[conv front] B = {b} whole front {tuple(got.shape)}: max abs err / max |value| "
+                  f"{err:.4g} (limit {CONV_FRONT_REL}), equal "
+                  f"{(bf16_ulp_gaps(got, want) == 0).float().mean().item():.6f}; the eager path "
+                  f"(cuDNN) vs plain: {eager_err:.4g}, equal {same:.6f}; launches {n_launch} "
+                  f"(want {conv_front.launches_per_call(pack)})")
+            if n_launch != conv_front.launches_per_call(pack) or err > CONV_FRONT_REL:
+                raise AssertionError(f"[conv front] B = {b}: {n_launch} launches a call, "
+                                     f"whole front {err:.4g} off the plain version")
+            if b > 1:
+                rows = [0, b // 2, b - 1]
+                alone = [bf16_ulp_gaps(conv_front.conv_frontend(a[r:r + 1], pack, enc._project),
+                                       got[r:r + 1]).max().item() for r in rows]
+                print(f"[conv front] B = {b}: rows {rows} vs alone, max ulps {alone}")
+                if max(alone) != 0:
+                    raise AssertionError(f"[conv front] a row of B = {b} differs from itself alone")
+            torch.cuda.synchronize()
+        times = {}
+        for b in CONV_FRONT_BATCHES:
+            a = conv_front_audio(b, samples, dev, seed=371)
+            reps = 20 if b == 1 else 5
+            times[b] = {
+                "kernel": cuda_ms(lambda: conv_front.conv_frontend(a, pack, enc._project), reps),
+                "eager": cuda_ms(lambda: enc._embed(enc.extract_features(a)), max(2, reps // 2)),
+                "plain": cuda_ms(lambda: conv_front.conv_frontend_plain(a, pack, enc._project),
+                                 max(2, reps // 2))}
+            x, per = a, []
+            for i in range(len(pack["stride"])):
+                y = conv_front.conv_layer(x, pack, i)
+                per.append(cuda_ms(lambda: conv_front.conv_layer(x, pack, i), reps))
+                x = y
+            x = enc._project(x)
+            per.append(cuda_ms(lambda: conv_front.pos_conv_residual(x, pack), reps))
+            work = roofline.conv_frontend_work(enc.cfg, samples, b)
+            ops_ms = roofline.matmul_ms(work.flops, torch.bfloat16)
+            bytes_ms = roofline.bytes_ms(work.bytes)
+            bound = max(ops_ms, bytes_ms)
+            t = times[b]
+            t.update(per_launch=per, bound=bound, ops_ms=ops_ms, bytes_ms=bytes_ms)
+            print(f"[conv front] times at B = {b}: kernels {t['kernel']:.4f} ms a call (with the "
+                  f"projection), eager path (cuDNN fp32) {t['eager']:.4f}, plain {t['plain']:.4f}, "
+                  f"bound {bound:.4f} ({ops_ms:.4f} operations at 989 TFLOP/s, {bytes_ms:.4f} "
+                  f"bytes); per launch " + ", ".join(f"{v:.4f}" for v in per))
+            if b > 1:
+                profile_calls(lambda: conv_front.conv_frontend(a, pack, enc._project),
+                              f"conv front B = {b}", reps=3)
+        out["times"] = times
+    return out
+
+
 def build_engine(dev: torch.device, env: dict, config: tcfg.ModelConfig,
                  **kwargs) -> ARTAvatarInferEngine:
     """An engine on ``dev`` with random seed-0 weights, the precision
@@ -1214,10 +1374,12 @@ def drive(engine: ARTAvatarInferEngine, audio: np.ndarray, tag: str) -> dict:
     motions = engine.inference(audio)
     ms_window = (time.perf_counter() - t0) * 1e3 / n_windows
     launches = launch_counts()
+    conv_launches = [since_zero()["conv_frontend"]]
     zero_launches()
     streamed = np.concatenate(list(engine.stream(
         audio[i : i + ws] for i in range(0, len(audio), ws))), axis=0)
     stream_launches = launch_counts()
+    conv_launches.append(since_zero()["conv_frontend"])
     if motions.shape != (250, 106) or not np.isfinite(motions).all():
         raise AssertionError(f"[{tag}] inference gave {motions.shape}, "
                              f"finite={np.isfinite(motions).all()}")
@@ -1232,7 +1394,7 @@ def drive(engine: ARTAvatarInferEngine, audio: np.ndarray, tag: str) -> dict:
                              f"max abs err {stream_err:.3g}")
     return {"motions": motions, "ms_window": ms_window, "launches": launches,
             "stream_launches": stream_launches, "stream_err": stream_err,
-            "n_windows": n_windows}
+            "n_windows": n_windows, "conv_launches": conv_launches}
 
 
 def check_launches(tag: str, run: dict, want: dict) -> None:
@@ -1251,17 +1413,25 @@ def phase_mode(mode: str, dev: torch.device, exact_bits: np.ndarray):
     levels = len(engine.model.patch_nums)
     check_launches(mode, run, {"ar": levels * n if fused else 0, "encoder": n if fused else 0,
                                "flash": 0})
+    # the conv front's kernels: one launch a conv of every bf16 window
+    conv = conv_front.launches_per_call(engine.model.frontend_pack()) * n \
+        if engine.cfg.bf16_audio else 0
+    if run["conv_launches"] != [conv, conv]:
+        raise AssertionError(f"[{mode}] conv front launches (inference, stream) "
+                             f"{run['conv_launches']}, want {conv} each")
     bits = window0_bits(engine.model, audio)
     agree = float((bits == exact_bits).mean())
     print(f"[mode {mode}] inference {run['ms_window']:.2f} ms/window; stream vs offline max abs "
           f"err {run['stream_err']:.3g}; launches per {n} windows: inference "
-          f"{run['launches']}, stream {run['stream_launches']}; window-0 code bits agreeing "
+          f"{run['launches']}, stream {run['stream_launches']}, conv front "
+          f"{run['conv_launches']}; window-0 code bits agreeing "
           f"with exact {agree:.4f}")
     floor = 0.999 if mode == "fused" else 0.9
     if agree < floor:
         raise AssertionError(f"[{mode}] only {agree:.4f} of the code bits agree with exact")
     return engine, {"ms_window": run["ms_window"], "launches": run["launches"], "agree": agree,
-                    "motions": run["motions"], "bits": bits}
+                    "motions": run["motions"], "bits": bits,
+                    "conv_launches": run["conv_launches"]}
 
 
 class DecodedBits:
@@ -3359,12 +3529,14 @@ def no_other_launches(tag: str, total: dict) -> None:
 
 def want_tool_launches(name: str, argv: list, env: dict, launches: dict) -> dict:
     """The launches a tool's run makes on the card (the production config:
-    5 AR launches a window step, one encoder launch a window step or call),
-    by kernel and by pack, zero for every kernel not named. The HTTP ticks
+    5 AR launches a window step, one encoder launch a window step or call,
+    one conv-front launch a conv of every bf16 encoder call), by kernel and
+    by pack, zero for every kernel not named. The HTTP ticks
     depend on when the clients' chunks arrive: there the AR launches must be
     5 per encoder launch, and the ticks between one per timed chunk of a
     batch and one per chunk."""
     levels = len(tcfg.ModelConfig().vae.patch_nums)
+    convs = len(tcfg.ModelConfig().wav2vec.conv_dim) + 1
     pack = {"int8": "int8", "fast": "bf16"}.get(env.get("ARTALK_AR_PRECISION"), "f32")
 
     def flag(name: str) -> str:
@@ -3377,6 +3549,7 @@ def want_tool_launches(name: str, argv: list, env: dict, launches: dict) -> dict
         # float32 packs: the AR stack at B <= 2, the encoder's at B = 1
         want[f"ar/{pack}"] = levels * calls * sum(1 for b in sizes if pack != "f32" or b <= 2)
         want[f"encoder/{pack}"] = calls * sum(1 for b in sizes if pack != "f32" or b == 1)
+        want["conv_frontend"] = convs * calls * len(sizes) if pack != "f32" else 0
     elif name == "bench_http_serving":
         clients = [int(c) for c in argv[argv.index("--clients") + 1:argv.index("--windows")]]
         windows = int(flag("--windows"))
@@ -3386,10 +3559,13 @@ def want_tool_launches(name: str, argv: list, env: dict, launches: dict) -> dict
             raise AssertionError(f"[tools] bench_http_serving: {ticks} ticks for clients "
                                  f"{clients} x {1 + windows} chunks")
         want["ar/int8"], want["encoder/int8"] = levels * ticks, ticks   # --precision int8
+        want["conv_frontend"] = convs * ticks
     elif name == "profile_pipeline":
         want["rasterize"] = 25 * (1 + int(flag("--iters")))
     elif name == "profile_encoder":
         want["encoder/bf16"] = want["encoder/int8"] = 1 + int(flag("--iters"))
+        # the bf16 encoder's full call, plain and with each fused pack
+        want["conv_frontend"] = 3 * convs * (1 + int(flag("--iters")))
     elif name == "profile_gsplat":
         calls = 1 + int(flag("--iters"))
         want["gsplat"] = calls                         # S4
@@ -3689,6 +3865,8 @@ def main() -> int:
     times = phase_times(model, ar_packs, enc_packs)
     serving_times = phase_serving_times(model, ar_packs["int8"], enc_packs["int8"])
     del engine, model, ar_packs, enc_packs
+    torch.cuda.empty_cache()
+    conv = phase_conv_front(dev)
     splat, gaga_sorts, splat_scenes = phase_gaga_all(dev, audio, motions)
     phase_sort_path(splat_scenes["avatar"])
     torch.cuda.empty_cache()
@@ -3811,6 +3989,13 @@ def main() -> int:
                     "parallel_launches": parallel["sort"], "checkpoint_launches": ckpt["sort"],
                     "tool_launches": under(tools, "sort"),
                     "max_abs_err": sort_err, **sort_times})
+    kernels.append({"name": "conv_frontend", "route": "cuda",
+                    "source": "artalk_tpu_torch/csrc/conv_frontend.cu",
+                    "replaces": "cuDNN's float32 convolution of bf16 values (no pl.pallas_call)",
+                    "launches": {m: modes[m]["conv_launches"] for m in MODES},
+                    "layers": conv["layers"], "front": {k: v for k, v in conv.items()
+                                                        if k.startswith("front/")},
+                    "times": conv["times"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

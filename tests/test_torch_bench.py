@@ -156,6 +156,22 @@ def test_fused_sections_declare_their_launches(monkeypatch):
     assert bench.decode_kernels(model, 8) == {}
 
 
+def test_bf16_sections_declare_the_conv_front():
+    """In the bf16 modes a section also declares one conv-front launch a
+    conv of every window (``ops/conv_frontend.py``), with its work."""
+    model = BitwiseARModel(SMALL).init(torch.Generator().manual_seed(0))
+    convs = len(SMALL.wav2vec.conv_dim) + 1
+    for fields, stacks in (({}, {}), ({"fused_ar": True}, {
+            "ar_block_stack": 8 * len(model.patch_nums), "encoder_block_stack": 8})):
+        with bench.precision(model, bf16_audio=True, bf16_ar=True, **fields):
+            kernels = bench.decode_kernels(model, 8)
+            assert {k: n for k, (n, _) in kernels.items()} == {"conv_frontend": 8 * convs,
+                                                               **stacks}
+            want = roofline.conv_frontend_work(SMALL.wav2vec, model.window_samples, 1) * 8
+            assert kernels["conv_frontend"][1] == want and want.flops > 0
+    assert bench.decode_kernels(model, 8) == {}
+
+
 def test_pipelined_ms_median_and_spread():
     calls = []
     ms, spread = timing.pipelined_ms(lambda i, prev: calls.append((i, prev)) or i, 3,

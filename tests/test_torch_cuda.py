@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: the
 rasterizer, the AR block stack, the encoder block stack, the gaussian splat,
-flash attention and the int32 key sort.
+flash attention, the int32 key sort and the wav2vec2 conv front.
 
 Marked ``cuda``: skipped without an NVIDIA GPU. This file imports neither jax
 nor artalk_tpu, so it also runs on a GPU machine without them; there, skip
@@ -31,7 +31,11 @@ sort_keys_plain and torch.sort exactly, and
 the splat prepass through it must give the instance lists that torch.sort
 gives. The TF32 probe (tests/tf32_probe.py) runs HuBERT in a fresh process
 that imports only the HuBERT module: its outputs must not move when TF32 is
-turned off afterwards.
+turned off afterwards. The conv front's kernels sum each convolution in
+another order than cuDNN: per layer, fed the plain version's input, they are
+held to the shares of equal elements and the ulps of CONV_LAYER_* below, the
+whole front to CONV_FRONT_REL of its largest value; every row of 140 windows
+must equal itself run alone exactly.
 """
 
 import itertools
@@ -603,3 +607,140 @@ def test_mesh_renderer_is_deterministic(cuda):
         verts = FlameModel(data).to(cuda).motion_to_verts(torch.zeros(8, 300, device=cuda),
                                                           motion)
         assert torch.equal(renderer(verts), renderer(verts))
+
+
+# the conv front's kernels against the plain version fed the same input, per
+# layer: the sums are taken in another order, so a bf16 rounding flips by one
+# ulp in a few elements of each conv's sum; the LayerNorm then scales such a
+# flip by its scale over the row's deviation, which can reach a few ulps of
+# the layer's largest value (2 ulps read on the card, PERF.md §6)
+CONV_LAYER_EQUAL = 0.999          # share of elements equal
+CONV_LAYER_NEAR = 0.9995          # share within 1 ulp of their own magnitude
+CONV_LAYER_ULPS_OF_MAX = 4        # max |got - want| in ulps of the largest |value|
+# the whole front: the flips of seven layers carried through the later convs,
+# LayerNorms and the projection (0.013 of the largest value read at B = 140)
+CONV_FRONT_REL = 0.03
+
+
+def _conv_front(cuda):
+    """The production conv front in bf16 on the card (one encoder layer),
+    seed-0 weights with conv biases and LayerNorm rows off their defaults."""
+    from artalk_tpu_torch.config import Wav2VecConfig
+    from artalk_tpu_torch.models.wav2vec import Wav2VecEncoder
+
+    enc = Wav2VecEncoder(Wav2VecConfig(num_hidden_layers=1)).init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith(("norm.scale", "norm.bias", "conv.b")):
+                p.add_(torch.randn(p.shape, generator=g) * 0.3)
+    return enc.to(cuda, torch.bfloat16).requires_grad_(False)
+
+
+def _conv_audio(b, cuda, seed=5):
+    from artalk_tpu_torch.models.wav2vec import normalize_audio
+
+    g = torch.Generator().manual_seed(seed)
+    return normalize_audio((torch.randn((b, 64000), generator=g) * 0.1).to(cuda, torch.bfloat16))
+
+
+def _bf16_ulps(got, want):
+    def ordered(t):
+        u = t.contiguous().view(torch.int16).int() & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 140])
+def test_conv_frontend_layers_match_plain(cuda, b):
+    from artalk_tpu_torch.ops import conv_frontend as tcf
+
+    enc = _conv_front(cuda)
+    pack = enc.pack_frontend()
+    x = _conv_audio(b, cuda)
+    with torch.no_grad():
+        for i in range(len(pack["stride"]) + 1):
+            if i < len(pack["stride"]):
+                got, want = tcf.conv_layer(x, pack, i), tcf.conv_layer_plain(x, pack, i)
+            else:
+                x = enc._project(x)
+                got, want = tcf.pos_conv_residual(x, pack), tcf.pos_conv_residual_plain(x, pack)
+            assert got.shape == want.shape and got.dtype == torch.bfloat16
+            gaps = _bf16_ulps(got, want)
+            top = want.float().abs().max().item()
+            ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+            err = (got.float() - want.float()).abs().max().item()
+            assert (gaps == 0).float().mean().item() >= CONV_LAYER_EQUAL, i
+            assert (gaps <= 1).float().mean().item() >= CONV_LAYER_NEAR, i
+            assert err <= CONV_LAYER_ULPS_OF_MAX * ulp, (i, err, ulp)
+            x = want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 140])
+def test_conv_frontend_matches_plain(cuda, b):
+    from artalk_tpu_torch.ops import conv_frontend as tcf
+
+    enc = _conv_front(cuda)
+    pack = enc.pack_frontend()
+    a = _conv_audio(b, cuda, seed=6)
+    with torch.no_grad():
+        before = launches()
+        got = tcf.conv_frontend(a, pack, enc._project)
+        assert _added(before)["conv_frontend"] == tcf.launches_per_call(pack) == 8
+        want = tcf.conv_frontend_plain(a, pack, enc._project)
+    assert got.shape == want.shape == (b, 199, 1024) and got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err.item() <= CONV_FRONT_REL
+
+
+@pytest.mark.cuda
+def test_conv_frontend_rows_equal_alone(cuda):
+    """Every row of the stream cell's 140 windows equals itself run alone,
+    bit for bit."""
+    from artalk_tpu_torch.ops import conv_frontend as tcf
+
+    enc = _conv_front(cuda)
+    pack = enc.pack_frontend()
+    a = _conv_audio(140, cuda, seed=7)
+    with torch.no_grad():
+        got = tcf.conv_frontend(a, pack, enc._project)
+        for r in range(140):
+            assert torch.equal(got[r:r + 1], tcf.conv_frontend(a[r:r + 1], pack, enc._project)), r
+
+
+@pytest.mark.cuda
+def test_conv_frontend_launches_per_window(cuda):
+    """The AR model's window encode launches the conv front's kernels once
+    per conv in a bf16 mode, with the pack it built once, and never in the
+    exact mode or with inputs that need a gradient."""
+    import dataclasses
+
+    from artalk_tpu_torch.config import ARConfig, ModelConfig, VAEConfig, Wav2VecConfig
+    from artalk_tpu_torch.models.ar_model import BitwiseARModel
+
+    cfg = ModelConfig(ar=ARConfig(depth=1, num_heads=2, embed_dim=64, style_dim=16),
+                      vae=VAEConfig(motion_dim=8, code_dim=4, depth=1, num_heads=2,
+                                    hidden_dim=16, patch_nums=(1, 5, 25, 50, 100)),
+                      wav2vec=Wav2VecConfig(num_hidden_layers=1))
+    model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0)).to(cuda)
+    chunk = torch.randn((2, model.window_samples), generator=torch.Generator().manual_seed(1))
+    chunk = chunk.to(cuda) * 0.1
+    with torch.no_grad():
+        before = launches()
+        exact = model.audio_condition(chunk)
+        assert _added(before)["conv_frontend"] == 0
+        model.set_precision(dataclasses.replace(cfg, bf16_audio=True, bf16_ar=True))
+        pack = model.frontend_pack()
+        before = launches()
+        for _ in range(3):
+            fast = model.audio_condition(chunk)
+        assert _added(before)["conv_frontend"] == 3 * 8
+        assert model.frontend_pack() is pack
+    assert fast.shape == exact.shape and torch.isfinite(fast).all()
+    model.audio_encoder.requires_grad_(True)
+    before = launches()
+    model.audio_condition(chunk)
+    assert _added(before)["conv_frontend"] == 0

@@ -52,6 +52,7 @@ def test_import_leaves_jax_out():
     assert gaga | {"artalk_tpu_torch.ops.gsplat", "artalk_tpu_torch.ops.resize2d",
                    "artalk_tpu_torch.ops.attention", "artalk_tpu_torch.models.hubert",
                    "artalk_tpu_torch.models.mimi", "artalk_tpu_torch.ops.sort",
+                   "artalk_tpu_torch.ops.conv_frontend",
                    "artalk_tpu_torch.models.renderer_extras",
                    "artalk_tpu_torch.evaluation", "artalk_tpu_torch.runtime.media",
                    "artalk_tpu_torch.server", "artalk_tpu_torch.convert_checkpoint",
@@ -172,8 +173,9 @@ def test_rasterize_gaussians_other_devices_raise():
         gsplat.rasterize_gaussians(*args, size=128)
 
 
-@pytest.mark.parametrize("name", ["ar_block_stack", "attention", "encoder_block_stack",
-                                  "gsplat", "motion_json", "rasterizer", "sort"])
+@pytest.mark.parametrize("name", ["ar_block_stack", "attention", "conv_frontend",
+                                  "encoder_block_stack", "gsplat", "motion_json", "rasterizer",
+                                  "sort"])
 def test_kernel_headers_cover_the_includes(name):
     """A module's library declaration (``LIB``) names a source that exists.
     A library is named by a hash of its source and headers only, so the
@@ -197,13 +199,14 @@ def test_kernel_headers_cover_the_includes(name):
 
 def test_launches_lists_the_six_kernels():
     """The one launch counter lists every kernel from its declaration on:
-    the six CUDA libraries, the block stacks by pack and their folded
-    products, the sort's CUDA launches."""
+    the seven CUDA libraries (the six ported kernels and the conv front's),
+    the block stacks by pack and their folded products, the sort's CUDA
+    launches."""
     from artalk_tpu_torch.ops import _nvcc
 
     counts = _nvcc.launches()
     kernels = {"rasterize", "ar_block_stack", "encoder_block_stack", "gsplat",
-               "flash_attention", "sort"}
+               "flash_attention", "sort", "conv_frontend"}
     assert {k for k in counts if "/" not in k} == kernels
     assert {lib.kernel for lib in _nvcc.kernel_libraries()} == kernels
     assert {f"{k}/{p}" for k in ("ar_block_stack", "encoder_block_stack")
