@@ -4,6 +4,10 @@ Reference-format ``config.json`` files load verbatim. The dataclasses mirror
 the JAX package's field for field. ``MimiEncoderConfig`` lives here (the JAX
 package keeps it in ``models/mimi.py`` and imports it lazily to break an
 import cycle), so ``ModelConfig.mimi`` takes a plain default.
+``WhisperEncoderConfig`` (``AUDIO_ENCODER: "whisper"``) is the port's own: the
+JAX package has no Whisper encoder. Its JSON form is the ``WHISPER_CONFIG``
+group of ``config.json`` under Hugging Face's ``WhisperConfig`` key names,
+written only for a Whisper-conditioned model.
 
 The precision mode is read from the environment here and nowhere else
 (``precision_from_env``).
@@ -68,7 +72,7 @@ class ARConfig:
     depth: int = 12
     num_heads: int = 12
     prev_ratio: int = 1
-    audio_encoder: str = "wav2vec"  # 'wav2vec' | 'mimi'
+    audio_encoder: str = "wav2vec"  # 'wav2vec' | 'mimi' | 'whisper'
     embed_dim: int = 768
     style_dim: int = 128
     mlp_ratio: float = 4.0
@@ -78,7 +82,7 @@ class ARConfig:
     def audio_feature_dim(self) -> int:
         if self.audio_dim is not None:
             return self.audio_dim
-        return {"wav2vec": 1024, "mimi": 512}[self.audio_encoder]
+        return {"wav2vec": 1024, "mimi": 512, "whisper": 1280}[self.audio_encoder]
 
     @classmethod
     def from_json_dict(cls, d: dict) -> "ARConfig":
@@ -185,6 +189,57 @@ class MimiEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class WhisperEncoderConfig:
+    """Whisper large-v3's encoder (``openai/whisper-large-v3``: config.json and
+    preprocessor_config.json): a 128-bin log-mel front over exactly
+    ``chunk_length`` seconds of 16 kHz audio, two GELU convolutions (the
+    second of stride 2), fixed sinusoidal positions, 32 pre-LN layers of 1280
+    with 20 heads and FFN 5120, a final LayerNorm. ``chunk_length`` may be
+    cut for small models (tests); ``max_source_positions`` must be half the
+    mel frames it gives."""
+
+    num_mel_bins: int = 128
+    n_fft: int = 400
+    hop_length: int = 160
+    sampling_rate: int = 16000
+    chunk_length: float = 30.0
+    d_model: int = 1280
+    encoder_layers: int = 32
+    encoder_attention_heads: int = 20
+    encoder_ffn_dim: int = 5120
+    max_source_positions: int = 1500
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def n_samples(self) -> int:
+        """Samples of the encoder's fixed input (480,000 at 30 s)."""
+        return int(round(self.chunk_length * self.sampling_rate))
+
+    @property
+    def n_frames(self) -> int:
+        """Mel frames of that input (3,000): the STFT's frames less the last."""
+        return self.n_samples // self.hop_length
+
+    def window_positions(self, window_samples: int) -> int:
+        """Encoder positions (50 Hz) that cover the last ``window_samples``
+        of the input: 200 for a 4-s window."""
+        return window_samples // (2 * self.hop_length)
+
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "WhisperEncoderConfig":
+        """The ``WHISPER_CONFIG`` group: HF ``WhisperConfig`` /
+        ``WhisperFeatureExtractor`` key names, published defaults."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - names
+        if unknown:
+            raise ValueError(f"WHISPER_CONFIG: unknown keys {sorted(unknown)}")
+        return cls(**d)
+
+    def to_json_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Top-level model config bundling AR + VAE + audio sub-configs, with the
     JAX config's precision switches (``precision_from_env`` sets them from the
@@ -194,10 +249,12 @@ class ModelConfig:
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     wav2vec: Wav2VecConfig = dataclasses.field(default_factory=Wav2VecConfig)
     mimi: MimiEncoderConfig = dataclasses.field(default_factory=MimiEncoderConfig)
+    whisper: WhisperEncoderConfig = dataclasses.field(default_factory=WhisperEncoderConfig)
     fps: float = 25.0
     sample_rate: int = 16000
-    # run the wav2vec2 encoder in bfloat16 (norm statistics and softmax stay
-    # float32). Changes code bits against float32; opt-in.
+    # run the wav2vec2 or Whisper encoder in bfloat16 (norm statistics,
+    # softmax and Whisper's log-mel front stay float32). Changes code bits
+    # against float32; opt-in.
     bf16_audio: bool = False
     # run the AR blocks of the window decode in bfloat16; the head and the
     # inter-level arithmetic stay float32. Opt-in.
@@ -217,14 +274,21 @@ class ModelConfig:
 
     @classmethod
     def from_json_dict(cls, d: dict) -> "ModelConfig":
-        return cls(
-            ar=ARConfig.from_json_dict(d.get("AR_CONFIG", {})),
-            vae=VAEConfig.from_json_dict(d.get("VAE_CONFIG", {})),
-        )
+        ar = ARConfig.from_json_dict(d.get("AR_CONFIG", {}))
+        whisper = WhisperEncoderConfig.from_json_dict(d.get("WHISPER_CONFIG", {}))
+        if ar.audio_encoder == "whisper" and whisper.d_model != ar.audio_feature_dim:
+            # the AdaLN input is the encoder's width
+            ar = dataclasses.replace(ar, audio_dim=whisper.d_model)
+        return cls(ar=ar, vae=VAEConfig.from_json_dict(d.get("VAE_CONFIG", {})),
+                   whisper=whisper)
 
     def to_json_dict(self) -> dict:
-        """The reference's ``config.json`` form: ``load_config`` reads it back."""
-        return {"AR_CONFIG": self.ar.to_json_dict(), "VAE_CONFIG": self.vae.to_json_dict()}
+        """The reference's ``config.json`` form: ``load_config`` reads it back
+        (with ``WHISPER_CONFIG`` for a Whisper-conditioned model)."""
+        out = {"AR_CONFIG": self.ar.to_json_dict(), "VAE_CONFIG": self.vae.to_json_dict()}
+        if self.ar.audio_encoder == "whisper":
+            out["WHISPER_CONFIG"] = self.whisper.to_json_dict()
+        return out
 
 
 def load_config(path: str) -> ModelConfig:

@@ -14,8 +14,11 @@ it with its weight packs (``utils/params.load_model``).
 
 The audio encoder follows the configuration: ``"AUDIO_ENCODER": "mimi"`` in
 ``<assets_dir>/config.json`` (``ARConfig.audio_encoder``) selects the Mimi
-codec, and ``Wav2VecConfig.use_flash_attention`` routes the wav2vec2 layers'
-attention through the flash-attention kernel.
+codec, ``"whisper"`` Whisper large-v3's encoder (widths from the optional
+``WHISPER_CONFIG`` group), and ``Wav2VecConfig.use_flash_attention`` routes the
+wav2vec2 layers' attention through the flash-attention kernel. On Whisper the
+stream's carry (``last_stream_state``) holds the audio context too, so a
+resumed stream hears its last 26 s.
 
 The engine feeds the metrics registry (``utils/metrics.GLOBAL_METRICS``) at
 the JAX engine's names and places: the stages ``inference.generate``,
@@ -25,8 +28,9 @@ and ``render.frames``. Besides them, spans (in the registry's ring only, so
 its snapshot stays the JAX engine's): ``inference.download`` (the motion's
 copy to the host, which waits for the device), the window step's
 ``window.encode``, ``window.decode`` and ``window.vae`` (``ar_model.py``),
-the Mimi encoder's ``mimi.*`` (``models/mimi.py``; their ``device_us`` read
-after ``inference.download``), the mesh renderer's ``mesh.*`` and
+the Mimi encoder's ``mimi.*`` (``models/mimi.py``) and Whisper's
+``whisper.*`` (``models/whisper.py``; their ``device_us`` read after
+``inference.download``), the mesh renderer's ``mesh.*`` and
 GAGAvatar's ``gaga.*``. A stage or span times the host and adds no
 synchronisation.
 

@@ -17,8 +17,9 @@ them back into a ``WindowState``.
 
 Produces ``<out>/window_step_b<B>.pt2`` + ``<out>/params.npz``. The exact
 (default) step is exported, as the JAX tool exports it: the fused and int8
-configurations and the flash-attention encoder launch their CUDA kernels
-through ctypes, which ``torch.export`` cannot trace, and raise.
+configurations and the flash-attention encoders (wav2vec2 with its switch,
+Whisper) launch their CUDA kernels through ctypes, which ``torch.export``
+cannot trace, and raise.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def export_window_step(model: BitwiseARModel, batch: int = 1,
     kernels = [name for name, on in (
         ("fused_ar", cfg.fused_ar), ("int8_ar", cfg.int8_ar),
         ("wav2vec.use_flash_attention",
-         cfg.ar.audio_encoder == "wav2vec" and cfg.wav2vec.use_flash_attention)) if on]
+         cfg.ar.audio_encoder == "wav2vec" and cfg.wav2vec.use_flash_attention),
+        ("the whisper encoder's flash attention", cfg.ar.audio_encoder == "whisper")) if on]
     if kernels:
         raise ValueError(f"export_window_step: {', '.join(kernels)} launch CUDA kernels through "
                          "ctypes, which torch.export cannot trace; export the exact step")

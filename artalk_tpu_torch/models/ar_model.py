@@ -14,19 +14,27 @@ window and are written in place.
 
 The audio encoder is the wav2vec2 encoder (``models/wav2vec.py``; its
 ``use_flash_attention`` routes the layers' attention through the
-flash-attention kernel) or, with ``ARConfig.audio_encoder = "mimi"``, the Mimi
-codec (``models/mimi.py``: 512-d conditioning at 12.5 Hz).
+flash-attention kernel), with ``ARConfig.audio_encoder = "mimi"`` the Mimi
+codec (``models/mimi.py``: 512-d conditioning at 12.5 Hz), or with
+``"whisper"`` Whisper large-v3's encoder (``models/whisper.py``: 1280-d at
+50 Hz, attention through the flash-attention kernel). Whisper takes a fixed
+30 s of audio, so its carry holds a third tensor, ``WindowState.audio_ctx``:
+the 26 s before the window (zeros before the stream's start), and each
+window is conditioned on the last 200 of the 1,500 positions of the 30 s that
+end with it (its own 4 s). The other encoders carry ``audio_ctx = None``.
 
 The model owns its precision mode (``config.precision_from_env`` reads it):
 ``set_precision`` sets the configuration's switches and builds, or drops,
 the block stacks' weight packs, and the switches route the decode as the JAX
 model does. ``bf16_audio`` runs the wav2vec2 encoder in bfloat16 (Mimi stays
 float32; the XLS-R conv front through ``ops/conv_frontend.py`` with the weight
-pack ``frontend_pack`` builds once), ``bf16_ar`` the block walk; ``fused_ar``
+pack ``frontend_pack`` builds once), and Whisper's stem and layers on the
+bfloat16 copies of its weights that ``audio_weights`` builds once;
+``bf16_ar`` the block walk; ``fused_ar``
 runs each level's blocks as one launch of the AR block-stack kernel (``ops/ar_block_stack.py``)
 against a merged-head cache, and the wav2vec2 stable-LN encoder layers as one
-launch of ``ops/encoder_block_stack.py`` (Mimi and the post-LN layout have no
-fused path), with float32, bfloat16 or (``int8_ar``) int8 weight packs
+launch of ``ops/encoder_block_stack.py`` (Mimi, Whisper and the post-LN layout
+have no fused path), with float32, bfloat16 or (``int8_ar``) int8 weight packs
 (``pack_type``). Float32 packs keep the JAX package's routing rules
 (``kernel_takes``): the AR kernel at batch <= 2 only, the encoder kernel at
 batch 1 only.
@@ -69,6 +77,7 @@ from .bsq import bits_to_values
 from .mimi import MimiEncoder
 from .style_encoder import StyleEncoder
 from .wav2vec import Wav2VecEncoder
+from .whisper import WhisperEncoder
 
 
 # The float32 packs' largest batch per block stack, as the JAX package routes
@@ -142,6 +151,9 @@ class WindowState(NamedTuple):
 
     prev_bits: torch.Tensor       # (B, sum(patch_nums), code_dim) int32
     prev_attn_feat: torch.Tensor  # (B, prev_len, embed)
+    # Whisper only: (B, context - window samples) float32, the audio before
+    # the window, zeros before the stream's start; None for the other encoders
+    audio_ctx: Optional[torch.Tensor] = None
 
 
 class _Blocks(nn.Module):
@@ -195,6 +207,15 @@ class BitwiseARModel(nn.Module):
             self.audio_encoder = Wav2VecEncoder(cfg.wav2vec)
         elif cfg.ar.audio_encoder == "mimi":
             self.audio_encoder = MimiEncoder(cfg.mimi)
+        elif cfg.ar.audio_encoder == "whisper":
+            w = cfg.whisper
+            if cd != w.d_model or self.window_samples > w.n_samples \
+                    or self.window_samples % (2 * w.hop_length):
+                raise ValueError(
+                    f"whisper: AdaLN input {cd} for d_model {w.d_model}, or a window of "
+                    f"{self.window_samples} samples that is not whole positions of the "
+                    f"{w.n_samples}-sample context")
+            self.audio_encoder = WhisperEncoder(w)
         else:
             raise ValueError(f"unknown audio encoder {cfg.ar.audio_encoder!r}")
         self.vqfeat_embed = tnn.Linear(cfg.vae.code_dim, d)
@@ -208,11 +229,13 @@ class BitwiseARModel(nn.Module):
         self.register_buffer("_lvl_idx", torch.cat([
             torch.full((pn,), i, dtype=torch.long) for i, pn in enumerate(self.patch_nums)
         ]), persistent=False)
-        # the fused paths' weight packs, built by set_precision, and the bf16
-        # conv front's (``frontend_pack``)
+        # the fused paths' weight packs, built by set_precision, the bf16
+        # conv front's (``frontend_pack``) and Whisper's bf16 weights
+        # (``audio_weights``)
         self.fused_pack: Optional[dict] = None
         self.fused_audio_pack: Optional[dict] = None
         self._frontend_pack: Optional[dict] = None
+        self._audio_weights: Optional[dict] = None
         self.requires_grad_(False)
 
     # ------------------------------------------------------------------ init
@@ -306,15 +329,17 @@ class BitwiseARModel(nn.Module):
         """Decode in ``cfg``'s precision mode from now on: set ``cfg`` and, with
         ``fused_ar``, build both block stacks' weight packs from the current
         parameters on their device, or drop them; likewise the conv front's
-        pack (``frontend_pack``) in the bf16 modes. A call with the mode the
-        model holds its packs for keeps them."""
+        pack (``frontend_pack``) and Whisper's bf16 weights (``audio_weights``)
+        in the bf16 modes. A call with the mode the model holds its packs for
+        keeps them."""
         if cfg == self.cfg and (self.fused_pack is not None) == cfg.fused_ar:
             return
         self.cfg = cfg
         self.fused_pack = self._pack("ar") if cfg.fused_ar else None
         self.fused_audio_pack = self._pack("encoder") if cfg.fused_ar else None
-        self._frontend_pack = None
+        self._frontend_pack = self._audio_weights = None
         self.frontend_pack()
+        self.audio_weights()
 
     def frontend_pack(self) -> Optional[dict]:
         """The wav2vec2 conv front's bf16 weight pack (``ops/conv_frontend.py``)
@@ -330,10 +355,24 @@ class BitwiseARModel(nn.Module):
             self._frontend_pack = enc.pack_frontend()
         return self._frontend_pack
 
+    def audio_weights(self) -> Optional[dict]:
+        """Whisper's parameters as bfloat16 copies, by name, where
+        ``bf16_audio`` runs it in bfloat16, else None: built by
+        ``set_precision``, or on first use where the model's mode was set
+        without it, and kept (the encoder's buffers stay float32)."""
+        enc = self.audio_encoder
+        if not (self.cfg.bf16_audio and isinstance(enc, WhisperEncoder)):
+            return None
+        if self._audio_weights is None:
+            self._audio_weights = {k: p.detach().to(torch.bfloat16)
+                                   for k, p in enc.named_parameters()}
+        return self._audio_weights
+
     def _pack(self, stack: str) -> Optional[dict]:
         """``stack``'s weight pack for its block-stack kernel ("ar", "encoder"),
         of ``pack_type``, packed from the float32 parameters; None where the
-        encoder has no fused path: Mimi, and the post-LN wav2vec2 layout."""
+        encoder has no fused path: Mimi, Whisper, and the post-LN wav2vec2
+        layout."""
         dtype = pack_type(self.cfg, stack)
         if stack == "ar":
             return pack_block_weights(self.blocks, self.num_heads, dtype=dtype)
@@ -440,7 +479,8 @@ class BitwiseARModel(nn.Module):
 
     # ------------------------------------------------------------ window decode
 
-    def audio_condition(self, audio_chunk: torch.Tensor) -> torch.Tensor:
+    def audio_condition(self, audio_chunk: torch.Tensor,
+                        audio_ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, window_samples) audio -> (B, 181, audio_dim) multi-scale
         condition: encoder features area-resized to each scale.
 
@@ -448,12 +488,23 @@ class BitwiseARModel(nn.Module):
         ``bf16_audio`` the wav2vec2 encoder runs on bfloat16 copies of its
         parameters and a bfloat16 chunk (norm statistics and softmax stay
         float32); with ``fused_ar`` its layers go through the block-stack
-        kernel (float32 packs at batch 1 only). The condition is float32."""
+        kernel (float32 packs at batch 1 only). Whisper encodes the context
+        ``audio_ctx`` (the carry's; None: zeros) followed by the chunk, on
+        ``audio_weights`` in the bf16 modes, and keeps the positions of the
+        chunk. The condition is float32."""
         cfg = self.cfg
         enc = self.audio_encoder
         fused_pack = self._kernel_pack("encoder", audio_chunk.shape[0])
         if isinstance(enc, MimiEncoder):
             feat = enc(audio_chunk)
+        elif isinstance(enc, WhisperEncoder):
+            if audio_ctx is None:
+                audio_ctx = self.initial_audio_ctx(audio_chunk.shape[0], audio_chunk)
+            full = torch.cat([audio_ctx, audio_chunk.float()], dim=1)
+            weights = self.audio_weights()
+            feat = enc(full) if weights is None else \
+                torch.func.functional_call(enc, weights, (full,))
+            feat = feat[:, -enc.cfg.window_positions(self.window_samples):]
         elif cfg.bf16_audio:
             tensors = {**dict(enc.named_parameters()), **dict(enc.named_buffers())}
             tensors = {k: t.to(torch.bfloat16) if t.dtype == torch.float32 else t
@@ -583,11 +634,33 @@ class BitwiseARModel(nn.Module):
     # ------------------------------------------------------------ sliding window
 
     def initial_state(self, style_cond: torch.Tensor, batch_size: int = 1) -> WindowState:
-        """Bootstrap carry from a zero-motion window."""
+        """Bootstrap carry from a zero-motion window (and, for Whisper, a
+        silent context)."""
         zero_motion = style_cond.new_zeros(
             (batch_size, self.patch_nums[-1], self.cfg.vae.motion_dim))
         prev_bits, _ = self.vae.encode_to_bits(zero_motion)
-        return WindowState(prev_bits, self._prefix_from_bits(style_cond, prev_bits, tile=True))
+        return WindowState(prev_bits, self._prefix_from_bits(style_cond, prev_bits, tile=True),
+                           self.initial_audio_ctx(batch_size, style_cond))
+
+    def initial_audio_ctx(self, batch_size: int, like: torch.Tensor
+                          ) -> Optional[torch.Tensor]:
+        """Whisper's silent context (batch_size, context - window samples),
+        float32 on ``like``'s device; None for the other encoders."""
+        enc = self.audio_encoder
+        if not isinstance(enc, WhisperEncoder):
+            return None
+        return torch.zeros((batch_size, enc.cfg.n_samples - self.window_samples),
+                           dtype=torch.float32, device=like.device)
+
+    def roll_audio_ctx(self, audio_ctx: Optional[torch.Tensor], audio_chunk: torch.Tensor
+                       ) -> Optional[torch.Tensor]:
+        """The context after a window: the last (context - window) samples of
+        the context followed by the chunk; None for the other encoders."""
+        if not isinstance(self.audio_encoder, WhisperEncoder):
+            return None
+        if audio_ctx is None:
+            audio_ctx = self.initial_audio_ctx(audio_chunk.shape[0], audio_chunk)
+        return torch.cat([audio_ctx[:, self.window_samples:], audio_chunk.float()], dim=1)
 
     def _prefix_from_bits(self, style_cond: torch.Tensor, bits: torch.Tensor,
                           tile: bool = False) -> torch.Tensor:
@@ -607,13 +680,16 @@ class BitwiseARModel(nn.Module):
         frames (B, window, motion_dim) + the new carry. ``sample`` as in
         ``decode_window``."""
         with GLOBAL_METRICS.span("window.encode"):
-            audio_cond = self.audio_condition(audio_chunk)
-        return self.window_step_cond(state, audio_cond, style_cond, sample)
+            audio_cond = self.audio_condition(audio_chunk, state.audio_ctx)
+        new_state, motion = self.window_step_cond(state, audio_cond, style_cond, sample)
+        return new_state._replace(audio_ctx=self.roll_audio_ctx(state.audio_ctx, audio_chunk)), \
+            motion
 
     def window_step_cond(self, state: WindowState, audio_cond: torch.Tensor,
                          style_cond: torch.Tensor, sample: Optional[tuple] = None
                          ) -> Tuple[WindowState, torch.Tensor]:
-        """Window step with the audio condition already computed."""
+        """Window step with the audio condition already computed; the
+        carry's ``audio_ctx`` is passed on as it is."""
         with GLOBAL_METRICS.span("window.decode"):
             bits = self.decode_window(audio_cond, style_cond, state.prev_attn_feat, sample)
         with GLOBAL_METRICS.span("window.vae"):
@@ -622,7 +698,7 @@ class BitwiseARModel(nn.Module):
             new_prefix = self._prefix_from_bits(style_cond, new_prev_bits)
         rolled = torch.cat(
             [state.prev_attn_feat[:, new_prefix.shape[1]:], new_prefix], dim=1)
-        return WindowState(new_prev_bits, rolled), this_motion
+        return WindowState(new_prev_bits, rolled, state.audio_ctx), this_motion
 
     def generate(self, audio_chunks: torch.Tensor, style_cond: torch.Tensor,
                  sample_generator: Optional[torch.Generator] = None, top_k: int = 2,
@@ -635,7 +711,8 @@ class BitwiseARModel(nn.Module):
         Unlike the JAX package, which encodes all N windows in one batched
         pass, the encoder runs window by window: offline and streaming decode
         then launch the same kernels at the same shapes, and agree bit for
-        bit on the card."""
+        bit on the card. Whisper conditions each window on the 30 s that end
+        with it: the clip's earlier chunks, carried in the state."""
         n, b = audio_chunks.shape[0], audio_chunks.shape[1]
         state = self.initial_state(style_cond, batch_size=b)
         sample = None if sample_generator is None else (sample_generator, top_k, top_p)

@@ -7,7 +7,10 @@ session resets that session's row of the batched carry and style table.
 
 Rows of sessions absent from a tick are stepped on silence to keep the batch
 shape, and the previous carry is merged back for them with ``torch.where``,
-so a paused session continues exactly where it stopped. (The JAX pool does
+so a paused session continues exactly where it stopped. On Whisper the carry
+also holds each session's audio context (``WindowState.audio_ctx``): an idle
+row keeps its context, a reused slot starts from silence, and ``grow`` keeps
+the live sessions' contexts. (The JAX pool does
 the same masking inside its jitted, donated step; the port runs eagerly.)
 
 Spans (``utils/metrics.GLOBAL_METRICS``; each times the host): ``step`` is
@@ -15,8 +18,8 @@ one ``pool.tick`` (rows stepped = capacity, rows with audio), with the
 children ``pool.pack`` (the host buffer), ``pool.upload`` (its copy to the
 device), the window step's ``window.*`` and ``pool.download`` (the motion's
 copy to the host, which waits for the device; with the thread's CPU time).
-After the download the device-timed spans of the step (the Mimi encoder's
-stages) get their ``device_us``.
+After the download the device-timed spans of the step (the Mimi and Whisper
+encoders' stages, the wav2vec2 conv front) get their ``device_us``.
 
 The pool decodes in the model's precision mode (``BitwiseARModel.set_precision``),
 with the routing rules of ``models/ar_model.kernel_takes``.
@@ -84,6 +87,8 @@ class StreamPool:
         fresh = self.model.initial_state(style, batch_size=1)
         self._state.prev_bits[sid] = fresh.prev_bits[0]
         self._state.prev_attn_feat[sid] = fresh.prev_attn_feat[0]
+        if self._state.audio_ctx is not None:      # a new session hears silence first
+            self._state.audio_ctx[sid] = 0.0
         self._active[sid] = True
         return sid
 
@@ -104,9 +109,8 @@ class StreamPool:
         extra = new_capacity - self.capacity
         self._styles = torch.cat([self._styles, self._null_style.repeat(extra, 1, 1)])
         fresh = self.model.initial_state(self._null_style, batch_size=extra)
-        self._state = WindowState(
-            torch.cat([self._state.prev_bits, fresh.prev_bits]),
-            torch.cat([self._state.prev_attn_feat, fresh.prev_attn_feat]))
+        self._state = WindowState(*(None if old is None else torch.cat([old, new])
+                                    for old, new in zip(self._state, fresh)))
         self._free = list(range(self.capacity, new_capacity))[::-1] + self._free
         self.capacity = new_capacity
 
@@ -125,13 +129,14 @@ class StreamPool:
         """The tick's device work, on device tensors: one batched window step
         of ``audio`` (capacity, window_samples), then the carry of each row
         where ``stepped`` (capacity,) bool is False put back. Commits and
-        returns the new carry, with the motion (capacity, window, 106) on the
-        device. Counterpart of the JAX pool's jitted ``_masked_step``."""
+        returns the new carry (Whisper's audio context included), with the
+        motion (capacity, window, 106) on the device. Counterpart of the JAX
+        pool's jitted ``_masked_step``."""
         new_state, motion = self.model.window_step(self._state, audio, self._styles)
-        m = stepped[:, None, None]
-        self._state = WindowState(
-            torch.where(m, new_state.prev_bits, self._state.prev_bits),
-            torch.where(m, new_state.prev_attn_feat, self._state.prev_attn_feat))
+        self._state = WindowState(*(
+            None if old is None else
+            torch.where(stepped.view((-1,) + (1,) * (old.ndim - 1)), new, old)
+            for new, old in zip(new_state, self._state)))
         return self._state, motion
 
     def step(self, chunks: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:

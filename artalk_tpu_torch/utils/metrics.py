@@ -51,6 +51,10 @@ The spans of the package, by module (``engine.py``, ``server.py``,
 step), ``mimi.*`` (the Mimi encoder's stages inside ``window.encode``:
 ``mimi.resample``, ``mimi.seanet``, ``mimi.transformer`` and ``mimi.rvq``,
 each with ``rows`` and ``frames`` and, on a card, ``device_us``),
+``whisper.*`` (the Whisper encoder's stages inside ``window.encode``:
+``whisper.logmel``, ``whisper.stem`` and ``whisper.layers``, each with
+``rows`` and ``frames`` and, on a card, ``device_us``),
+``wav2vec.frontend`` (the wav2vec2 conv front; ``device_us`` on a card),
 ``inference.download``, ``mesh.*`` and ``gaga.*`` (the renderers), and the
 engine's stages.
 """

@@ -3320,7 +3320,8 @@ def first_divergent_op(model, chunks: np.ndarray, row: int) -> str:
     null = model.encode_style(None)
     fresh = model.initial_state(null, batch_size=1)
     b = len(chunks)
-    wide = WindowState(*(t.repeat(b, *([1] * (t.ndim - 1))) for t in fresh))
+    wide = WindowState(*(None if t is None else t.repeat(b, *([1] * (t.ndim - 1)))
+                         for t in fresh))
     one, many, styles = (torch.from_numpy(chunks[row:row + 1]).to(dev),
                          torch.from_numpy(chunks).to(dev), null.repeat(b, 1, 1))
     with torch.no_grad():

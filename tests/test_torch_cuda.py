@@ -35,7 +35,15 @@ turned off afterwards. The conv front's kernels sum each convolution in
 another order than cuDNN: per layer, fed the plain version's input, they are
 held to the shares of equal elements and the ulps of CONV_LAYER_* below, the
 whole front to CONV_FRONT_REL of its largest value; every row of 140 windows
-must equal itself run alone exactly.
+must equal itself run alone exactly. The Whisper encoder in bfloat16 at its
+published widths: each row of a batch of 4 within WHISPER_ROW_REL of the same
+row encoded alone, and 32 flash-attention launches a window step. Each
+product is one GEMM over every position, whose algorithm cuBLAS picks by the
+number of rows: the rows read 1.6e-7-2.6e-7 on the card, but a rounding
+flipped in one of 32 layers grows through the rest (1.5e-2-1.7e-2 when the
+products ran as batched GEMMs whose algorithm changed with the batch), so the
+limit lies under how far the bf16 encode lies from float32 in the Whisper
+cell's runs (3.2e-2-3.6e-2) and far under rows that mix (order 1).
 """
 
 import itertools
@@ -744,3 +752,44 @@ def test_conv_frontend_launches_per_window(cuda):
     before = launches()
     model.audio_condition(chunk)
     assert _added(before)["conv_frontend"] == 0
+
+
+WHISPER_ROW_REL = 4e-2
+
+
+@pytest.mark.cuda
+def test_whisper_window_step_rows_and_flash_launches(cuda):
+    """One Whisper window step at B = 4 in bfloat16 (published widths, a
+    small AR model): 32 flash-attention launches, each row's condition
+    within WHISPER_ROW_REL of its own B = 1 encode, and the context rolled
+    exactly."""
+    from artalk_tpu_torch.config import ARConfig, ModelConfig, VAEConfig
+    from artalk_tpu_torch.models.ar_model import BitwiseARModel
+
+    cfg = ModelConfig(ar=ARConfig(depth=1, num_heads=2, audio_encoder="whisper", embed_dim=64,
+                                  style_dim=16),
+                      vae=VAEConfig(motion_dim=8, code_dim=4, depth=1, num_heads=2,
+                                    hidden_dim=16, patch_nums=(1, 5, 25, 50, 100)),
+                      bf16_audio=True, bf16_ar=True)
+    model = BitwiseARModel(cfg).init(torch.Generator().manual_seed(0)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    style = model.encode_style(None)
+    state = model.initial_state(style, batch_size=4)
+    state = state._replace(audio_ctx=torch.randn(state.audio_ctx.shape, generator=gen,
+                                                 device=cuda) * 0.1)
+    chunk = torch.randn((4, model.window_samples), generator=gen, device=cuda) * 0.1
+    with torch.no_grad():
+        before = launches()
+        new, motion = model.window_step(state, chunk, style)
+        torch.cuda.synchronize()
+        assert _added(before)["flash_attention"] == 32
+        assert torch.isfinite(motion).all()
+        assert torch.equal(new.audio_ctx, torch.cat([state.audio_ctx, chunk], 1)[:, 64000:])
+        weights = model.audio_weights()
+        together = model.audio_condition(chunk, state.audio_ctx)
+        assert model.audio_weights() is weights
+        for r in range(4):
+            alone = model.audio_condition(chunk[r:r + 1], state.audio_ctx[r:r + 1])
+            err = (together[r:r + 1] - alone).abs().max() / alone.abs().max()
+            print(f"whisper row {r}: {err.item():.3e} of the largest value alone")
+            assert err.item() <= WHISPER_ROW_REL, r

@@ -80,7 +80,8 @@ def test_device_step_is_step_and_matches_the_jax_pool():
             for sid in ticks:
                 np.testing.assert_array_equal(got[sid], want[sid])
             for a, b in zip(by_step._state, by_device._state):
-                assert torch.equal(a, b)
+                # the wav2vec2 carry holds no audio context: None in both pools
+                assert a is b is None or torch.equal(a, b)
             jax_out = jpool.step(chunks)
             for sid in ticks:
                 np.testing.assert_allclose(want[sid], np.asarray(jax_out[sid]), atol=POOL_TOL)
